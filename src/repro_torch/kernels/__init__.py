@@ -1,0 +1,65 @@
+"""Hand-written CUDA kernels for the assessment scan (Hopper, ``sm_90a``).
+
+* ``qap_count`` — fused multi-metric predicate+count scan (the paper's
+  metric evaluation loop, one pass over the planes for all metrics).
+* ``fused_scan`` — the one-true-pass scan: counter bytecode AND every HLL
+  sketch's register bank in the same pass over the planes.
+
+Sources live in ``repro_torch/csrc``; ``_build`` compiles them with
+``nvcc`` on first use and binds them through ``ctypes``. Each wrapper in
+``*/ops.py`` launches its kernel for a CUDA tensor and runs the plain torch
+version in ``*/ref.py`` only for a CPU tensor.
+
+Pass accounting
+---------------
+Every op wrapper that streams the full planes tensor once calls
+``record_scan()`` before it dispatches on the device, so running one pass
+function under ``count_scans()`` counts its data passes per execution on
+any device — the hook behind ``QualityEvaluator.passes_per_chunk``.
+
+Launch accounting
+-----------------
+``LAUNCHES`` holds one count per kernel. A wrapper adds one where it
+launches its kernel on the card, and nowhere else, so a run can show that
+it went through the kernels: ``reset_launches()`` before, read after.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+
+LAUNCHES: dict[str, int] = {"qap_count": 0, "fused_scan": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+class _ScanCounter(threading.local):
+    active = False
+    count = 0
+
+
+_scans = _ScanCounter()
+
+
+def record_scan(n: int = 1) -> None:
+    """Declare ``n`` full passes over the planes tensor (a no-op unless
+    inside ``count_scans()``)."""
+    if _scans.active:
+        _scans.count += n
+
+
+@contextlib.contextmanager
+def count_scans():
+    """Count ``record_scan`` calls in this thread; yields a 1-element list
+    whose slot holds the running (and, on exit, final) count."""
+    prev_active, prev_count = _scans.active, _scans.count
+    _scans.active, _scans.count = True, 0
+    box = [0]
+    try:
+        yield box
+        box[0] = _scans.count
+    finally:
+        _scans.active, _scans.count = prev_active, prev_count

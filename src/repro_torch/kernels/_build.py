@@ -1,0 +1,120 @@
+"""Build the CUDA sources in ``repro_torch/csrc`` and bind them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles on first use, with ``nvcc`` for
+``sm_90a``, into its own shared library with a plain C interface under
+``build/kernels/`` at the root of the checkout (``.gitignore`` lists
+``build/``). A library's file name carries a digest of its sources, so an
+edited kernel is rebuilt and a stale one is never loaded. ``build_all``
+starts one ``nvcc`` per source, all at once, and waits for them.
+
+Nothing here runs at import time: this module is imported on machines
+without a card or a compiler, where only the plain torch versions run.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import subprocess
+import threading
+from typing import Optional
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC.parents[2] / "build" / "kernels"
+SOURCES = ("qap_count", "fused_scan")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+# ptxas's report (registers, shared memory, spills) of each build
+build_logs: dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME)")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _lib_path(name: str) -> pathlib.Path:
+    digest = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        digest.update(f.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def _start(name: str) -> Optional[tuple[subprocess.Popen, pathlib.Path,
+                                        pathlib.Path]]:
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, job) -> None:
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    build_logs[name] = log
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all() -> None:
+    """Compile every source that has no current library, in parallel."""
+    with _lock:
+        jobs = {name: _start(name) for name in SOURCES}
+        errors = []
+        for name, job in jobs.items():
+            if job is None:
+                continue
+            try:
+                _finish(name, job)
+            except RuntimeError as e:
+                errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The ctypes library of ``csrc/<name>.cu``, built if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        job = _start(name)
+        if job is not None:
+            _finish(name, job)
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = _ARGTYPES[name]
+        _libs[name] = lib
+        return lib
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = {
+    # planes, n_rows, program, n_instr, n_counters, counts, stream
+    "qap_count": [_P, _LL, _P, _I, _I, _P, _P],
+    # ... counts, sketch_cols (host), n_sketches, p, regs, stream
+    "fused_scan": [_P, _LL, _P, _I, _I, _P, _P, _I, _I, _P, _P],
+}
+
+
+def check(name: str, err: int) -> None:
+    """Raise if a launch returned a nonzero ``cudaError_t``."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")

@@ -1,0 +1,105 @@
+"""Public wrapper around the qap_count CUDA kernel (``csrc/qap_count.cu``).
+
+For a CUDA tensor the wrapper launches the kernel or raises; for a CPU
+tensor it runs the plain torch version (``ref.counts_ref``). There is no
+fallback from one to the other.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from .. import LAUNCHES, _build, record_scan
+from ...core.expr import OP_AND, OP_EMIT, OP_EQP, OP_NOT, OP_OR
+from ...rdf.triple_tensor import N_PLANES
+from .ref import counts_ref
+
+COUNTS_WIDTH = 128   # most counters one program may have (kernel's table)
+MAX_STACK = 16       # deepest evaluation stack the kernels hold
+MAX_INSTR = 4096     # longest program staged in shared memory (48 KiB)
+
+
+def check_planes(planes: torch.Tensor) -> None:
+    if not isinstance(planes, torch.Tensor):
+        raise TypeError(f"planes must be a torch.Tensor, got "
+                        f"{type(planes).__name__}")
+    if planes.dtype != torch.int32:
+        raise TypeError(f"planes must be int32, got {planes.dtype}")
+    if planes.dim() != 2 or planes.shape[1] != N_PLANES:
+        raise ValueError(f"planes must be (N, {N_PLANES}), got "
+                         f"{tuple(planes.shape)}")
+    if planes.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"planes must be on cuda or cpu, got "
+                         f"{planes.device}")
+    if planes.device.type == "cuda" and not planes.is_contiguous():
+        raise ValueError("planes must be contiguous")
+
+
+def check_program(program, n_counters: int) -> int:
+    """Validate a bytecode program against the kernels' limits; returns
+    its stack depth."""
+    if not 0 <= n_counters <= COUNTS_WIDTH:
+        raise ValueError(f"{n_counters} counters; the kernels take at most "
+                         f"{COUNTS_WIDTH}")
+    if len(program) > MAX_INSTR:
+        raise ValueError(f"program of {len(program)} instructions; the "
+                         f"kernels take at most {MAX_INSTR}")
+    depth = max_depth = 0
+    for op, a, b in program:
+        if not 0 <= op <= OP_EMIT:
+            raise ValueError(f"bad opcode {op}")
+        if op == OP_EMIT:
+            if not 0 <= a < n_counters:
+                raise ValueError(f"EMIT to counter {a} of {n_counters}")
+        elif op not in (OP_AND, OP_OR, OP_NOT):
+            if not 0 <= a < N_PLANES or (op == OP_EQP
+                                         and not 0 <= b < N_PLANES):
+                raise ValueError(f"plane out of range in {(op, a, b)}")
+            if not -2**31 <= b < 2**31:
+                raise ValueError(f"immediate out of int32 in {(op, a, b)}")
+        depth += -1 if op in (OP_AND, OP_OR, OP_EMIT) else (
+            0 if op == OP_NOT else 1)
+        if depth < (0 if op == OP_EMIT else 1):
+            raise ValueError("unbalanced program")
+        max_depth = max(max_depth, depth)
+    if depth:
+        raise ValueError("unbalanced program")
+    if max_depth > MAX_STACK:
+        raise ValueError(f"stack depth {max_depth}; the kernels take at "
+                         f"most {MAX_STACK}")
+    return max_depth
+
+
+@functools.lru_cache(maxsize=64)
+def program_tensor(program, device: torch.device) -> torch.Tensor:
+    """The program as a flat int32 array of (op, a, b) triples on
+    ``device`` (cached: plans are immutable and reused across calls)."""
+    flat = np.asarray(program, np.int64).reshape(-1)
+    return torch.from_numpy(flat.astype(np.int32)).to(device)
+
+
+def fused_count(planes: torch.Tensor, program, n_counters: int):
+    """Evaluate the fused bytecode over (N, 13) planes → (n_counters,)
+    int64 counts. Zero rows (padding) carry no VALID bit and count in no
+    counter; the kernel masks the ragged tail itself."""
+    record_scan(1)
+    check_planes(planes)
+    check_program(program, n_counters)
+    if planes.device.type == "cpu":
+        return counts_ref(planes, program, n_counters)
+    counts = torch.zeros((n_counters,), dtype=torch.int64,
+                         device=planes.device)
+    if planes.shape[0] == 0 or not program:
+        return counts
+    lib = _build.load("qap_count")
+    with torch.cuda.device(planes.device):
+        prog = program_tensor(tuple(program), planes.device)
+        stream = torch.cuda.current_stream(planes.device).cuda_stream
+        err = lib.qap_count(planes.data_ptr(), planes.shape[0],
+                            prog.data_ptr(), len(program), n_counters,
+                            counts.data_ptr(), stream)
+    _build.check("qap_count", err)
+    LAUNCHES["qap_count"] += 1
+    return counts

@@ -1,0 +1,325 @@
+"""The port's scan-kernel wrappers (``repro_torch.kernels``) against the JAX
+package's Pallas kernels.
+
+On the CPU the wrappers run their plain torch versions; the JAX kernels run
+in Pallas interpret mode, as the JAX package's own tests run them. Inputs
+are numpy arrays made from a seed and handed to both. Tolerance: exact —
+counters are integer sums and registers integer maxima, so every value
+must be bit-identical.
+
+Tests marked ``gpu`` hold the CUDA kernels to the plain versions on the
+card; they skip where there is none.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.core import expr as JE
+from repro.core.metrics import ALL_METRICS as J_ALL, get_metrics as j_get
+from repro.core.planner import plan as j_plan
+from repro.kernels.fused_scan import ops as j_fops
+from repro.kernels.hll import ref as j_href
+from repro.kernels.qap_count import ops as j_qops
+
+from repro_torch import kernels as K
+from repro_torch.core import expr as TE
+from repro_torch.core.metrics import (ALL_METRICS, PAPER_METRICS,
+                                      get_metrics)
+from repro_torch.core.planner import plan
+from repro_torch.kernels.fused_scan import ops as fops, ref as fref
+from repro_torch.kernels.qap_count import ops as qops, ref as qref
+from repro_torch.rdf import synth_encoded
+from repro_torch.rdf.triple_tensor import COL_S, COL_S_FLAGS, N_PLANES
+
+FULL_PLAN = plan(get_metrics(ALL_METRICS))
+J_FULL_PLAN = j_plan(j_get(J_ALL))
+PAPER_PLAN = plan(get_metrics(PAPER_METRICS))
+
+
+def _planes(n, seed, pad_rows=0):
+    """Synthetic planes with ``pad_rows`` all-zero rows spliced in at the
+    front, the middle and the end (invisible to counters and sketches)."""
+    planes = synth_encoded(max(n, 1), seed=seed).planes[:n]
+    if pad_rows:
+        z = np.zeros((pad_rows, N_PLANES), np.int32)
+        mid = n // 2
+        planes = np.concatenate([z, planes[:mid], z, planes[mid:], z])
+    return np.ascontiguousarray(planes)
+
+
+def _jax_counts(planes, program, n_counters):
+    return np.asarray(j_qops.fused_count(jnp.asarray(planes), program,
+                                         n_counters), np.int64)
+
+
+# --- random programs, built from a seed with numpy ---------------------------
+
+_CMP = ["lt", "le", "gt", "ge", "eq", "ne"]
+
+
+def _rand_expr(rng, E, depth):
+    """Random Expr tree over module ``E`` (the port's or the JAX
+    package's expr module: both build the same bytecode)."""
+    if depth == 0 or rng.random() < 0.3:
+        kind = int(rng.integers(4))
+        plane = int(rng.integers(N_PLANES))
+        if kind == 0:
+            return E.HasBits(plane, 1 << int(rng.integers(15)))
+        if kind == 1:
+            return E.AnyBits(plane, 1 << int(rng.integers(15)))
+        if kind == 2:
+            return E.Cmp(plane, _CMP[int(rng.integers(6))],
+                         int(rng.integers(-4, 120)))
+        return E.EqPlanes(plane, int(rng.integers(N_PLANES)))
+    kind = int(rng.integers(3))
+    if kind == 2:
+        return E.Not(_rand_expr(rng, E, depth - 1))
+    a = _rand_expr(rng, E, depth - 1)
+    b = _rand_expr(rng, E, depth - 1)
+    return E.And(a, b) if kind == 0 else E.Or(a, b)
+
+
+def _rand_program(seed, E):
+    rng = np.random.default_rng(seed)
+    exprs = [_rand_expr(rng, E, 4) for _ in range(int(rng.integers(1, 8)))]
+    return E.compile_program(exprs), len(exprs)
+
+
+# --- qap_count ------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [1, 8, 100, 4099])
+def test_qap_count_plain_matches_jax_kernel(n):
+    planes = _planes(n, seed=n)
+    got = qops.fused_count(torch.from_numpy(planes), FULL_PLAN.program,
+                           FULL_PLAN.n_counters)
+    assert got.dtype == torch.int64 and got.device.type == "cpu"
+    want = _jax_counts(planes, J_FULL_PLAN.program, J_FULL_PLAN.n_counters)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        got.numpy(), qref.counts_ref_np(planes, FULL_PLAN.program,
+                                        FULL_PLAN.n_counters))
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_qap_count_random_programs(seed):
+    program, k = _rand_program(seed, TE)
+    j_program, j_k = _rand_program(seed, JE)
+    assert program == j_program and k == j_k
+    planes = _planes(300 + 97 * seed, seed=seed, pad_rows=3)
+    got = qops.fused_count(torch.from_numpy(planes), program, k).numpy()
+    np.testing.assert_array_equal(got, _jax_counts(planes, j_program, k))
+    np.testing.assert_array_equal(got, qref.counts_ref_np(planes, program, k))
+
+
+def test_qap_count_zero_rows_invisible():
+    planes = _planes(500, seed=4)
+    padded = _planes(500, seed=4, pad_rows=9)
+    a = qops.fused_count(torch.from_numpy(planes), FULL_PLAN.program,
+                         FULL_PLAN.n_counters)
+    b = qops.fused_count(torch.from_numpy(padded), FULL_PLAN.program,
+                         FULL_PLAN.n_counters)
+    assert torch.equal(a, b)
+    np.testing.assert_array_equal(
+        b.numpy(), _jax_counts(padded, J_FULL_PLAN.program,
+                               J_FULL_PLAN.n_counters))
+
+
+# --- fused_scan -------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [1, 8, 100, 4099])
+@pytest.mark.parametrize("p", [8, 12, 14])
+def test_fused_scan_plain_matches_jax_kernel(n, p):
+    """Counters AND every sketch's register bank, padding rows included,
+    equal the JAX megakernel's (interpret mode) bit for bit."""
+    planes = _planes(n, seed=n + p, pad_rows=5)
+    counts, regs = fops.fused_scan(torch.from_numpy(planes),
+                                   FULL_PLAN.program, FULL_PLAN.n_counters,
+                                   FULL_PLAN.sketch_specs, p)
+    j_counts, j_regs = j_fops.fused_scan(
+        jnp.asarray(planes), J_FULL_PLAN.program, J_FULL_PLAN.n_counters,
+        J_FULL_PLAN.sketch_specs, p)
+    np.testing.assert_array_equal(counts.numpy(),
+                                  np.asarray(j_counts, np.int64))
+    assert set(regs) == set(j_regs) == {"spo", "p"}
+    valid = planes[:, COL_S_FLAGS] != 0
+    for name, cols in FULL_PLAN.sketch_specs:
+        assert regs[name].dtype == torch.int32
+        assert regs[name].shape == (1 << p,)
+        np.testing.assert_array_equal(regs[name].numpy(),
+                                      np.asarray(j_regs[name]), name)
+        np.testing.assert_array_equal(
+            regs[name].numpy(),
+            j_href.hll_fold_ref(planes, cols, p, valid=valid), name)
+
+
+def test_fused_scan_no_sketches_delegates_to_qap_count():
+    """A sketch-free plan goes through qap_count — still one pass, an
+    empty register dict — as the JAX wrapper does."""
+    assert not PAPER_PLAN.sketch_specs
+    planes = torch.from_numpy(_planes(3000, seed=1))
+    with K.count_scans() as box:
+        counts, regs = fops.fused_scan(planes, PAPER_PLAN.program,
+                                       PAPER_PLAN.n_counters, (), 12)
+    assert regs == {} and box[0] == 1
+    assert torch.equal(counts, qref.counts_ref(planes, PAPER_PLAN.program,
+                                               PAPER_PLAN.n_counters))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_fused_scan_random_programs_and_sketches(seed):
+    """Random counter programs with random sketch column tuples."""
+    program, k = _rand_program(100 + seed, TE)
+    rng = np.random.default_rng(seed)
+    specs = tuple((f"s{i}", tuple(int(c) for c in rng.choice(
+        N_PLANES, size=int(rng.integers(1, 4)), replace=False)))
+        for i in range(int(rng.integers(1, 4))))
+    planes = _planes(777 + seed, seed=seed, pad_rows=4)
+    counts, regs = fops.fused_scan(torch.from_numpy(planes), program, k,
+                                   specs, 10)
+    j_counts, j_regs = j_fops.fused_scan(jnp.asarray(planes), program, k,
+                                         specs, 10)
+    np.testing.assert_array_equal(counts.numpy(),
+                                  np.asarray(j_counts, np.int64))
+    for name, _ in specs:
+        np.testing.assert_array_equal(regs[name].numpy(),
+                                      np.asarray(j_regs[name]), name)
+
+
+def test_scan_counts_once_per_wrapper_call():
+    planes = torch.from_numpy(_planes(64, seed=2))
+    with K.count_scans() as box:
+        fops.fused_scan(planes, FULL_PLAN.program, FULL_PLAN.n_counters,
+                        FULL_PLAN.sketch_specs, 12)
+        qops.fused_count(planes, FULL_PLAN.program, FULL_PLAN.n_counters)
+    assert box[0] == 2
+
+
+def test_plain_path_launches_nothing():
+    K.reset_launches()
+    planes = torch.from_numpy(_planes(64, seed=2))
+    fops.fused_scan(planes, FULL_PLAN.program, FULL_PLAN.n_counters,
+                    FULL_PLAN.sketch_specs, 12)
+    qops.fused_count(planes, PAPER_PLAN.program, PAPER_PLAN.n_counters)
+    assert K.LAUNCHES == {"qap_count": 0, "fused_scan": 0}
+
+
+# --- what the wrappers refuse ----------------------------------------------------
+
+@pytest.mark.parametrize("bad", [
+    pytest.param(lambda p: p.to(torch.int64), id="dtype"),
+    pytest.param(lambda p: p[:, :12], id="width"),
+    pytest.param(lambda p: p.reshape(-1), id="rank"),
+])
+def test_wrappers_reject_bad_planes(bad):
+    planes = bad(torch.from_numpy(_planes(16, seed=0)))
+    with pytest.raises((TypeError, ValueError)):
+        qops.fused_count(planes, FULL_PLAN.program, FULL_PLAN.n_counters)
+    with pytest.raises((TypeError, ValueError)):
+        fops.fused_scan(planes, FULL_PLAN.program, FULL_PLAN.n_counters,
+                        FULL_PLAN.sketch_specs, 12)
+
+
+def test_wrappers_reject_what_the_kernels_cannot_take():
+    planes = torch.from_numpy(_planes(16, seed=0))
+    deep = TE.HasBits(3, 8)
+    for _ in range(qops.MAX_STACK):          # right-nested: depth grows
+        deep = TE.And(TE.HasBits(3, 8), deep)
+    with pytest.raises(ValueError, match="stack depth"):
+        qops.fused_count(planes, TE.compile_program([deep]), 1)
+    many = [TE.Cmp(6, "gt", i) for i in range(qops.COUNTS_WIDTH + 1)]
+    with pytest.raises(ValueError, match="counters"):
+        qops.fused_count(planes, TE.compile_program(many), len(many))
+    with pytest.raises(ValueError, match="opcode"):
+        qops.fused_count(planes, ((99, 0, 0), (TE.OP_EMIT, 0, 0)), 1)
+    with pytest.raises(ValueError, match="hll p"):
+        fops.fused_scan(planes, FULL_PLAN.program, FULL_PLAN.n_counters,
+                        FULL_PLAN.sketch_specs, 30)
+    with pytest.raises(ValueError, match="columns"):
+        fops.fused_scan(planes, FULL_PLAN.program, FULL_PLAN.n_counters,
+                        (("bad", (COL_S, 13)),), 12)
+
+
+# --- on the card --------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 511, 512, 513, 8193, 100_003])
+def test_gpu_qap_count_matches_plain(cuda, n):
+    planes = torch.from_numpy(_planes(n, seed=n, pad_rows=3)).to(cuda)
+    for pln in (FULL_PLAN, PAPER_PLAN):
+        before = K.LAUNCHES["qap_count"]
+        got = qops.fused_count(planes, pln.program, pln.n_counters)
+        assert K.LAUNCHES["qap_count"] == before + 1
+        assert torch.equal(got, qref.counts_ref(planes, pln.program,
+                                                pln.n_counters))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", range(6))
+def test_gpu_qap_count_random_programs(cuda, seed):
+    program, k = _rand_program(seed, TE)
+    planes = torch.from_numpy(_planes(5000 + seed, seed=seed)).to(cuda)
+    assert torch.equal(qops.fused_count(planes, program, k),
+                       qref.counts_ref(planes, program, k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 513, 8193, 100_003])
+@pytest.mark.parametrize("p", [4, 8, 12, 13, 14, 16])
+def test_gpu_fused_scan_matches_plain(cuda, n, p):
+    """Shared-memory banks (small p) and global banks (large p) alike."""
+    planes = torch.from_numpy(_planes(n, seed=n + p, pad_rows=3)).to(cuda)
+    counts, regs = fops.fused_scan(planes, FULL_PLAN.program,
+                                   FULL_PLAN.n_counters,
+                                   FULL_PLAN.sketch_specs, p)
+    want_counts, want_regs = fref.fused_scan_torch(
+        planes, FULL_PLAN.program, FULL_PLAN.n_counters,
+        FULL_PLAN.sketch_specs, p)
+    assert torch.equal(counts, want_counts)
+    for name in want_regs:
+        assert torch.equal(regs[name], want_regs[name]), name
+
+
+@pytest.mark.gpu
+def test_gpu_unaligned_planes(cuda):
+    """A planes view that does not start on a 16-byte boundary takes the
+    kernels' scalar load path and gives the same result."""
+    base = torch.from_numpy(_planes(9000, seed=5)).to(cuda)
+    planes = base.reshape(-1)[N_PLANES:].reshape(-1, N_PLANES)  # 52 B in
+    assert planes.data_ptr() % 16 != 0
+    counts, regs = fops.fused_scan(planes, FULL_PLAN.program,
+                                   FULL_PLAN.n_counters,
+                                   FULL_PLAN.sketch_specs, 12)
+    want_counts, want_regs = fref.fused_scan_torch(
+        planes, FULL_PLAN.program, FULL_PLAN.n_counters,
+        FULL_PLAN.sketch_specs, 12)
+    assert torch.equal(counts, want_counts)
+    for name in want_regs:
+        assert torch.equal(regs[name], want_regs[name]), name
+
+
+@pytest.mark.gpu
+def test_gpu_ragged_tail_is_race_free(cuda):
+    """The last tile's final row ends mid 16-byte word when 13·N is not a
+    multiple of 4: its trailing planes (the hash columns) must be read
+    intact on every launch, not raced over by the tile's zero fill."""
+    n = 1953 * 512 + 67                      # 13·n % 4 == 3
+    planes = torch.from_numpy(_planes(n, seed=7)).to(cuda)
+    program = TE.compile_program([TE.EqPlanes(10, 12) | ~TE.EqPlanes(10, 12),
+                                  TE.Cmp(12, "ne", 0)])
+    specs = (("o", (12,)),)
+    want_counts, want_regs = fref.fused_scan_torch(planes, program, 2,
+                                                   specs, 12)
+    for _ in range(20):
+        assert torch.equal(qops.fused_count(planes, program, 2), want_counts)
+        counts, regs = fops.fused_scan(planes, program, 2, specs, 12)
+        assert torch.equal(counts, want_counts)
+        assert torch.equal(regs["o"], want_regs["o"])
