@@ -6,11 +6,14 @@ Execution modes:
   every requested metric — the planner's deduped bytecode.
 * ``fused=False`` (paper-faithful Algorithm 1): ``foreach m ∈ metrics`` run a
   separate pass.
-* ``backend='torch' | 'fused_scan'``: the plain torch versions (the
-  bytecode interpreter, plus one scatter-max scan per sketch — ``1 + S``
-  data passes), or the hand-written CUDA kernels (``kernels/fused_scan``:
-  counters AND every sketch register bank in one pass; a plan without
-  sketches goes to ``kernels/qap_count`` — exactly 1 data pass either way).
+* ``backend='torch' | 'twopass' | 'fused_scan'``: the plain torch
+  versions (the bytecode interpreter, plus one scatter-max scan per sketch
+  — ``1 + S`` data passes), the two-kernel path (``kernels/qap_count`` for
+  the counters plus one ``kernels/hll`` fold per sketch — also ``1 + S``
+  passes; the JAX package's ``pallas``), or the one-pass kernels
+  (``kernels/fused_scan``: counters AND every sketch register bank in one
+  pass; a plan without sketches goes to ``kernels/qap_count`` — exactly 1
+  data pass either way).
 * ``device``: where the planes live and the passes run (default
   ``"cuda"``). On a CPU device the kernel wrappers run their plain
   versions; on a CUDA device they launch the kernels or raise.
@@ -35,13 +38,13 @@ import numpy as np
 import torch
 
 from ..kernels import count_scans, record_scan
-from ..rdf.triple_tensor import TripleTensor, COL_S_FLAGS, N_PLANES
+from ..rdf.triple_tensor import TripleTensor, N_PLANES
 from . import sketches as hll
 from .expr import eval_program_torch
 from .metrics import ALL_METRICS, get_metrics
 from .planner import Plan, plan, plan_single
 
-BACKENDS = ("torch", "fused_scan")
+BACKENDS = ("torch", "twopass", "fused_scan")
 
 
 @dataclasses.dataclass
@@ -96,16 +99,19 @@ class QualityEvaluator:
                 from ..kernels.fused_scan import ops as fops
                 return fops.fused_scan(planes, program, n_counters,
                                        sketch_specs, hll_p)
+            if backend == "twopass":
+                from ..kernels.hll import ops as hops
+                from ..kernels.qap_count import ops as qops
+                counts = qops.fused_count(planes, program, n_counters)
+                return counts, {sname: hops.hll_fold(planes, cols, hll_p)
+                                for sname, cols in sketch_specs}
+            from ..kernels.hll.ref import hll_fold_torch
             record_scan(1)  # the counts scan
             counts = eval_program_torch(planes, program, n_counters)
             regs = {}
-            if sketch_specs:
-                valid = planes[:, COL_S_FLAGS] != 0  # any flag bit ⇒ real row
-                for sname, cols in sketch_specs:
-                    record_scan(1)  # one more scan per sketch
-                    regs[sname] = hll.hll_update(
-                        hll.hll_init(hll_p, planes.device), planes, cols,
-                        valid=valid)
+            for sname, cols in sketch_specs:
+                record_scan(1)  # one more scan per sketch
+                regs[sname] = hll_fold_torch(planes, cols, hll_p)
             return counts, regs
 
         return local_pass
@@ -119,7 +125,7 @@ class QualityEvaluator:
         """ACTUAL data passes one chunk evaluation performs, measured by
         running every plan's pass function once under the scan counter —
         1 per plan for the fused_scan kernels, ``1 + S`` for the torch
-        path with S sketches.
+        and twopass paths with S sketches.
 
         The probe runs on an 8-row zero tensor on the CPU: every wrapper
         records its scan before it dispatches on the device, so the count
@@ -138,6 +144,15 @@ class QualityEvaluator:
         carries are invisible to counters and sketches alike."""
         return torch.from_numpy(np.ascontiguousarray(tensor.planes)).to(
             self.device)
+
+    def plane_stager(self, slots: int):
+        """The function the pipelined executor's producer thread puts each
+        chunk through: ``device_planes`` on a CPU device; on a CUDA device
+        ``PinnedStager.put`` over ``slots`` pinned buffers, so the copy of
+        the next chunk overlaps the scan of this one."""
+        if self.device.type == "cuda":
+            return PinnedStager(self.device, slots).put
+        return self.device_planes
 
     # -- mergeable chunk interface ---------------------------------------------
     def _all_sketch_specs(self) -> tuple:
@@ -161,10 +176,13 @@ class QualityEvaluator:
             "chunks_done": set(),
         }
 
-    def dispatch_chunk(self, arr: torch.Tensor):
-        """Launch every plan's pass over device-resident ``arr`` WITHOUT
-        blocking (CUDA launches are asynchronous) — the device-side half
-        of ``eval_chunk``. Pair with ``materialize_chunk``."""
+    def dispatch_chunk(self, arr):
+        """Launch every plan's pass over device-resident ``arr`` (a tensor,
+        or ``StagedPlanes`` still being copied) WITHOUT blocking (CUDA
+        launches are asynchronous) — the device-side half of
+        ``eval_chunk``. Pair with ``materialize_chunk``."""
+        if isinstance(arr, StagedPlanes):
+            arr = arr.consume()
         return [fn(arr) for fn in self._pass_fns]
 
     @staticmethod
@@ -212,6 +230,73 @@ class QualityEvaluator:
                                 * self.passes_per_chunk,
                                 registers={k: np.asarray(v) for k, v
                                            in state["sketches"].items()})
+
+
+@dataclasses.dataclass
+class StagedPlanes:
+    """Planes on their way to the card: the device tensor, and the event
+    recorded on the copy stream after the copy into it."""
+    planes: torch.Tensor
+    ready: "torch.cuda.Event"
+
+    def consume(self) -> torch.Tensor:
+        """The planes, for work on the current stream: the stream waits for
+        the copy, and the caching allocator is told the tensor is used
+        there (it was allocated on the copy stream), so its memory is not
+        handed out again while a kernel still reads it."""
+        stream = torch.cuda.current_stream(self.planes.device)
+        stream.wait_event(self.ready)
+        self.planes.record_stream(stream)
+        return self.planes
+
+
+class PinnedStager:
+    """Host→device copies of chunk planes for the pipelined executor.
+
+    ``put`` copies a chunk into the next of ``slots`` pinned host buffers,
+    issues a non-blocking copy from there into a fresh device tensor on a
+    dedicated copy stream, records an event after it and returns at once.
+    From pageable memory ``.to(device)`` would be synchronous, and the
+    pipeline would run serially. A buffer is refilled only once the copy
+    out of it has finished (its event), and every buffer is sized to the
+    largest chunk seen, since streamed chunks differ in size.
+
+    Called from one producer thread; ``slots`` = prefetch + 1 covers the
+    chunks waiting in the queue plus the one being copied.
+    """
+
+    def __init__(self, device, slots: int):
+        device = torch.device(device)
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self._bufs: list = [None] * max(1, slots)
+        self._copied: list = [None] * len(self._bufs)
+        self._next = 0
+        self._capacity = 0
+
+    def put(self, tensor: TripleTensor) -> StagedPlanes:
+        i = self._next
+        self._next = (i + 1) % len(self._bufs)
+        if self._copied[i] is not None:
+            self._copied[i].synchronize()   # the last copy out of buffer i
+        host = torch.from_numpy(np.ascontiguousarray(tensor.planes))
+        n = host.numel()
+        if self._bufs[i] is None or self._bufs[i].numel() < n:
+            self._capacity = max(self._capacity, n, 1)
+            self._bufs[i] = torch.empty((self._capacity,), dtype=torch.int32,
+                                        pin_memory=True)
+        staged = self._bufs[i][:n].view(host.shape)
+        staged.copy_(host)
+        with torch.cuda.stream(self.stream):
+            planes = torch.empty(host.shape, dtype=torch.int32,
+                                 device=self.device)
+            planes.copy_(staged, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self.stream)
+        self._copied[i] = ready
+        return StagedPlanes(planes, ready)
 
 
 def state_from_numpy(state: Mapping, evaluator: QualityEvaluator) -> dict:

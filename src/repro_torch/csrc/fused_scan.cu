@@ -14,11 +14,8 @@
 // and integer sums are order-independent, so counters and registers are
 // bit-identical to the plain version whatever order blocks run in.
 //
-// Per row and sketch: h = 0x9E3779B9; for each column c,
-// h = fmix32(h ^ c); h = h * 5 + 0xE6546B64; then h = fmix32(h), in native
-// uint32 arithmetic. bucket = h >> (32 - p); rank = clz(h << p) + 1, or
-// 33 - p when h << p is 0. Rows whose s_flags plane is 0 (padding) fold
-// nothing; that is not the VALID bit the counters use.
+// The hash, rank and register update (scan_common.cuh) are the ones
+// hll_fold.cu uses, so both kernels give the same registers.
 //
 // What bounds it on an H100: the bytes, as for qap_count (52 bytes a
 // row, read once). The hashes cost some 10 integer operations per column,
@@ -33,30 +30,12 @@
 using namespace scan;
 
 constexpr int MAX_SKETCHES = 16;
-constexpr int SHARED_BANK_BYTES = 64 * 1024;
 
 struct SketchSpec {
   int n_sketches;
   int n_cols[MAX_SKETCHES];
   int cols[MAX_SKETCHES][N_PLANES];
 };
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ void raise_to(int* reg, int rank, bool shared) {
-  if (shared) {
-    if (rank > *(volatile int*)reg) atomicMax(reg, rank);
-  } else {
-    if (rank > __ldcg(reg)) atomicMax(reg, rank);
-  }
-}
 
 __global__ void __launch_bounds__(THREADS)
 fused_scan_kernel(const int* __restrict__ planes, long long n_rows,
@@ -66,17 +45,19 @@ fused_scan_kernel(const int* __restrict__ planes, long long n_rows,
                   int* __restrict__ regs) {
   extern __shared__ __align__(16) int smem[];
   __shared__ unsigned long long s_counts[MAX_COUNTERS];
+  __shared__ int s_cols[MAX_SKETCHES][N_PLANES];  // addressable copy of spec
   int* tile = smem;
   int* prog = smem + TILE_WORDS;
   const int bank_words = spec.n_sketches << p;
   int* banks = shared_banks ? prog + program_words(n_instr) : regs;
 
   for (int i = threadIdx.x; i < 3 * n_instr; i += THREADS) prog[i] = program[i];
+  for (int i = threadIdx.x; i < MAX_SKETCHES * N_PLANES; i += THREADS)
+    s_cols[i / N_PLANES][i % N_PLANES] = spec.cols[i / N_PLANES][i % N_PLANES];
   for (int i = threadIdx.x; i < n_counters; i += THREADS) s_counts[i] = 0;
   if (shared_banks)
     for (int i = threadIdx.x; i < bank_words; i += THREADS) banks[i] = 0;
 
-  const int max_rank = 33 - p;
   const long long n_tiles = (n_rows + TILE_ROWS - 1) / TILE_ROWS;
   for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     __syncthreads();
@@ -89,16 +70,8 @@ fused_scan_kernel(const int* __restrict__ planes, long long n_rows,
       const int* row = row_ptr(tile, r);
       if (row[VALID_PLANE] == 0) continue;  // padding row: rank 0
       for (int s = 0; s < spec.n_sketches; ++s) {
-        uint32_t h = 0x9E3779B9u;
-        for (int j = 0; j < spec.n_cols[s]; ++j) {
-          h = fmix32(h ^ (uint32_t)row[spec.cols[s][j]]);
-          h = h * 5u + 0xE6546B64u;
-        }
-        h = fmix32(h);
-        const uint32_t w = h << p;
-        int rank = w == 0 ? max_rank : __clz((int)w) + 1;
-        rank = rank < max_rank ? rank : max_rank;
-        raise_to(banks + (s << p) + (int)(h >> (32 - p)), rank,
+        const uint32_t h = hash_row(row, s_cols[s], spec.n_cols[s]);
+        raise_to(banks + (s << p) + (int)(h >> (32 - p)), hll_rank(h, p),
                  shared_banks);
       }
     }

@@ -1,6 +1,8 @@
-// Shared device code of the two assessment scan kernels (qap_count.cu,
-// fused_scan.cu): staging a tile of (rows, 13) int32 planes into shared
-// memory, and the planner's stack-machine bytecode evaluated over it.
+// Shared device code of the assessment scan kernels (qap_count.cu,
+// fused_scan.cu, hll_fold.cu): staging a tile of (rows, 13) int32 planes
+// into shared memory, the planner's stack-machine bytecode evaluated over
+// it, and the HyperLogLog hash, rank and register update, defined once so
+// the kernels that fold registers cannot drift apart.
 //
 // Layout of the work: a block of THREADS threads walks tiles of TILE_ROWS
 // rows in a grid-stride loop. Each thread owns ROWS_PER_THREAD rows of a
@@ -30,6 +32,9 @@ constexpr int TILE_WORDS = TILE_ROWS * N_PLANES;        // 26,624 bytes
 constexpr int MAX_COUNTERS = 128;
 constexpr int MAX_STACK = 64 / ROWS_PER_THREAD;         // 16 levels
 constexpr unsigned ROW_MASK = (1u << ROWS_PER_THREAD) - 1;
+// HLL register banks up to this size live in a block's shared memory;
+// larger ones are updated in place in the global output.
+constexpr int SHARED_BANK_BYTES = 64 * 1024;
 
 enum Op {
   OP_HASBITS = 0, OP_ANYBITS = 1, OP_LT = 2, OP_LE = 3, OP_GT = 4,
@@ -144,6 +149,61 @@ __device__ __forceinline__ void run_program(
       stack |= (uint64_t)eval_leaf(op, a, b, tile) << (sp * ROWS_PER_THREAD);
       ++sp;
     }
+  }
+}
+
+// --- HyperLogLog ------------------------------------------------------------
+// Per row and sketch: h = 0x9E3779B9; for each column c,
+// h = fmix32(h ^ c); h = h * 5 + 0xE6546B64; then h = fmix32(h), in native
+// uint32 arithmetic. bucket = h >> (32 - p); rank = clz(h << p) + 1, or
+// 33 - p when h << p is 0. Rows whose s_flags plane is 0 (padding) fold
+// nothing; that is not the VALID bit the counters use.
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+// The hash of one row over n_cols plane columns; `row` may point into
+// shared or global memory. Both loops are unrolled to the widest row and
+// every word is read before the hash chain starts, so the loads do not
+// wait on the chain and can all be in flight at once.
+__device__ __forceinline__ uint32_t hash_row(const int* row, const int* cols,
+                                             int n_cols) {
+  uint32_t v[N_PLANES];
+#pragma unroll
+  for (int j = 0; j < N_PLANES; ++j)
+    if (j < n_cols) v[j] = (uint32_t)row[cols[j]];
+  uint32_t h = 0x9E3779B9u;
+#pragma unroll
+  for (int j = 0; j < N_PLANES; ++j) {
+    if (j < n_cols) {
+      h = fmix32(h ^ v[j]);
+      h = h * 5u + 0xE6546B64u;
+    }
+  }
+  return fmix32(h);
+}
+
+__device__ __forceinline__ int hll_rank(uint32_t h, int p) {
+  const int max_rank = 33 - p;
+  const uint32_t w = h << p;
+  const int rank = w == 0 ? max_rank : __clz((int)w) + 1;
+  return rank < max_rank ? rank : max_rank;
+}
+
+// register = max(register, rank), skipping the atomic when it would not
+// raise the register: registers only grow, so a rank no larger than a
+// value once read can never be the final maximum. Most ranks are 1-3.
+__device__ __forceinline__ void raise_to(int* reg, int rank, bool shared) {
+  if (shared) {
+    if (rank > *(volatile int*)reg) atomicMax(reg, rank);
+  } else {
+    if (rank > __ldcg(reg)) atomicMax(reg, rank);
   }
 }
 

@@ -4,6 +4,8 @@
   metric evaluation loop, one pass over the planes for all metrics).
 * ``fused_scan`` — the one-true-pass scan: counter bytecode AND every HLL
   sketch's register bank in the same pass over the planes.
+* ``hll`` (``hll_fold``) — one HLL sketch's register bank alone, one pass
+  per sketch: the sketch half of the two-pass backend.
 
 Sources live in ``repro_torch/csrc``; ``_build`` compiles them with
 ``nvcc`` on first use and binds them through ``ctypes``. Each wrapper in
@@ -19,21 +21,31 @@ any device — the hook behind ``QualityEvaluator.passes_per_chunk``.
 
 Launch accounting
 -----------------
-``LAUNCHES`` holds one count per kernel. A wrapper adds one where it
-launches its kernel on the card, and nowhere else, so a run can show that
-it went through the kernels: ``reset_launches()`` before, read after.
+``LAUNCHES`` holds one count per kernel. A wrapper adds one, through
+``record_launch``, where it launches its kernel on the card, and nowhere
+else, so a run can show that it went through the kernels:
+``reset_launches()`` before, read after. The count is taken under a lock:
+the scheduler launches kernels from worker threads too.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
 
-LAUNCHES: dict[str, int] = {"qap_count": 0, "fused_scan": 0}
+LAUNCHES: dict[str, int] = {"qap_count": 0, "fused_scan": 0, "hll_fold": 0}
+_launch_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _launch_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def record_launch(name: str) -> None:
+    """Count one launch of kernel ``name`` (safe from any thread)."""
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 class _ScanCounter(threading.local):

@@ -22,7 +22,7 @@ from typing import Optional
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parents[2] / "build" / "kernels"
-SOURCES = ("qap_count", "fused_scan")
+SOURCES = ("qap_count", "fused_scan", "hll_fold")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -111,6 +111,8 @@ _ARGTYPES = {
     "qap_count": [_P, _LL, _P, _I, _I, _P, _P],
     # ... counts, sketch_cols (host), n_sketches, p, regs, stream
     "fused_scan": [_P, _LL, _P, _I, _I, _P, _P, _I, _I, _P, _P],
+    # planes, n_rows, cols (host), n_cols, p, regs, stream
+    "hll_fold": [_P, _LL, _P, _I, _I, _P, _P],
 }
 
 

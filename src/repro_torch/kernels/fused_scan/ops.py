@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import LAUNCHES, _build, record_scan
+from .. import _build, record_launch, record_scan
 from ..qap_count.ops import (check_planes, check_program, fused_count,
                              program_tensor)
 from ...rdf.triple_tensor import N_PLANES
@@ -72,5 +72,5 @@ def fused_scan(planes: torch.Tensor, program, n_counters: int,
                                  len(sketch_specs), p, regs.data_ptr(),
                                  stream)
         _build.check("fused_scan", err)
-        LAUNCHES["fused_scan"] += 1
+        record_launch("fused_scan")
     return counts, {name: regs[i] for i, (name, _) in enumerate(sketch_specs)}

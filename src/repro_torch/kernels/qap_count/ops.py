@@ -11,7 +11,7 @@ import functools
 import numpy as np
 import torch
 
-from .. import LAUNCHES, _build, record_scan
+from .. import _build, record_launch, record_scan
 from ...core.expr import OP_AND, OP_EMIT, OP_EQP, OP_NOT, OP_OR
 from ...rdf.triple_tensor import N_PLANES
 from .ref import counts_ref
@@ -101,5 +101,5 @@ def fused_count(planes: torch.Tensor, program, n_counters: int):
                             prog.data_ptr(), len(program), n_counters,
                             counts.data_ptr(), stream)
     _build.check("qap_count", err)
-    LAUNCHES["qap_count"] += 1
+    record_launch("qap_count")
     return counts

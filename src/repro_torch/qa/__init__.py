@@ -4,11 +4,14 @@ Fluent form::
 
     from repro_torch import qa
     res = qa.pipeline().metrics("paper").device("cuda").run("data.nt")
+    res = (qa.pipeline().metrics("all").chunked(16, checkpoint_dir="ckpt/")
+             .pipelined(2).run(tensor))
 
 One-call form::
 
     res = qa.assess(dataset, metrics="all")            # on the card
     res = qa.assess(dataset, metrics="all", device="cpu")
+    res = qa.assess(dataset, metrics="all", backend="twopass", chunks=8)
 
 Custom metrics (LQML-style declarative builders, fused with built-ins)::
 

@@ -20,7 +20,7 @@ from repro.core import expr as JE
 from repro.core.metrics import ALL_METRICS as J_ALL, get_metrics as j_get
 from repro.core.planner import plan as j_plan
 from repro.kernels.fused_scan import ops as j_fops
-from repro.kernels.hll import ref as j_href
+from repro.kernels.hll import ops as j_hops, ref as j_href
 from repro.kernels.qap_count import ops as j_qops
 
 from repro_torch import kernels as K
@@ -29,9 +29,11 @@ from repro_torch.core.metrics import (ALL_METRICS, PAPER_METRICS,
                                       get_metrics)
 from repro_torch.core.planner import plan
 from repro_torch.kernels.fused_scan import ops as fops, ref as fref
+from repro_torch.kernels.hll import ops as hops, ref as href
 from repro_torch.kernels.qap_count import ops as qops, ref as qref
 from repro_torch.rdf import synth_encoded
-from repro_torch.rdf.triple_tensor import COL_S, COL_S_FLAGS, N_PLANES
+from repro_torch.rdf.triple_tensor import (COL_P_HASH, COL_S, COL_S_FLAGS,
+                                           N_PLANES)
 
 FULL_PLAN = plan(get_metrics(ALL_METRICS))
 J_FULL_PLAN = j_plan(j_get(J_ALL))
@@ -187,13 +189,56 @@ def test_fused_scan_random_programs_and_sketches(seed):
                                       np.asarray(j_regs[name]), name)
 
 
+# --- hll_fold -----------------------------------------------------------------------
+
+SKETCH_COLS = [(COL_S,), (10, 11, 12), (COL_P_HASH,)]
+
+
+@pytest.mark.parametrize("cols", SKETCH_COLS, ids=str)
+@pytest.mark.parametrize("p", [8, 12, 14])
+@pytest.mark.parametrize("n", [1, 8, 100, 4099])
+def test_hll_fold_plain_matches_jax_kernel(n, p, cols):
+    """One sketch's registers, padding rows included, equal the JAX HLL
+    kernel's (interpret mode) and its numpy oracle bit for bit."""
+    planes = _planes(n, seed=3 * n + p, pad_rows=4)
+    regs = hops.hll_fold(torch.from_numpy(planes), cols, p)
+    assert regs.dtype == torch.int32 and regs.shape == (1 << p,)
+    np.testing.assert_array_equal(
+        regs.numpy(), np.asarray(j_hops.hll_fold(jnp.asarray(planes), cols,
+                                                 p)))
+    np.testing.assert_array_equal(
+        regs.numpy(), j_href.hll_fold_ref(planes, cols, p,
+                                          valid=planes[:, COL_S_FLAGS] != 0))
+
+
+@pytest.mark.parametrize("p", [8, 12, 14])
+def test_fused_scan_banks_equal_hll_fold(p):
+    """The cross-kernel invariant: each sketch bank of the one-pass scan
+    is the bank the two-pass fold gives for that sketch alone."""
+    planes = torch.from_numpy(_planes(2000, seed=p, pad_rows=3))
+    _, regs = fops.fused_scan(planes, FULL_PLAN.program, FULL_PLAN.n_counters,
+                              FULL_PLAN.sketch_specs, p)
+    for name, cols in FULL_PLAN.sketch_specs:
+        assert torch.equal(regs[name], hops.hll_fold(planes, cols, p)), name
+
+
+def test_hll_fold_zero_rows_invisible():
+    planes = torch.from_numpy(_planes(700, seed=9))
+    padded = torch.from_numpy(_planes(700, seed=9, pad_rows=11))
+    assert torch.equal(hops.hll_fold(planes, (10, 11, 12), 12),
+                       hops.hll_fold(padded, (10, 11, 12), 12))
+    assert torch.equal(hops.hll_fold(planes[:0], (11,), 10),
+                       torch.zeros(1 << 10, dtype=torch.int32))
+
+
 def test_scan_counts_once_per_wrapper_call():
     planes = torch.from_numpy(_planes(64, seed=2))
     with K.count_scans() as box:
         fops.fused_scan(planes, FULL_PLAN.program, FULL_PLAN.n_counters,
                         FULL_PLAN.sketch_specs, 12)
         qops.fused_count(planes, FULL_PLAN.program, FULL_PLAN.n_counters)
-    assert box[0] == 2
+        hops.hll_fold(planes, (10, 11, 12), 12)
+    assert box[0] == 3
 
 
 def test_plain_path_launches_nothing():
@@ -202,7 +247,32 @@ def test_plain_path_launches_nothing():
     fops.fused_scan(planes, FULL_PLAN.program, FULL_PLAN.n_counters,
                     FULL_PLAN.sketch_specs, 12)
     qops.fused_count(planes, PAPER_PLAN.program, PAPER_PLAN.n_counters)
-    assert K.LAUNCHES == {"qap_count": 0, "fused_scan": 0}
+    hops.hll_fold(planes, (11,), 12)
+    assert K.LAUNCHES == {"qap_count": 0, "fused_scan": 0, "hll_fold": 0}
+
+
+def test_launch_counts_survive_concurrent_threads():
+    """record_launch is a locked read-modify-write: many threads adding
+    at once, with the interpreter switching threads as often as it can,
+    lose no count."""
+    import sys
+    import threading
+    K.reset_launches()
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        workers = [threading.Thread(
+            target=lambda: [K.record_launch("hll_fold") for _ in range(2000)])
+            for _ in range(16)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=60)
+        assert not any(w.is_alive() for w in workers)
+    finally:
+        sys.setswitchinterval(old)
+    assert K.LAUNCHES["hll_fold"] == 16 * 2000
+    K.reset_launches()
 
 
 # --- what the wrappers refuse ----------------------------------------------------
@@ -219,6 +289,8 @@ def test_wrappers_reject_bad_planes(bad):
     with pytest.raises((TypeError, ValueError)):
         fops.fused_scan(planes, FULL_PLAN.program, FULL_PLAN.n_counters,
                         FULL_PLAN.sketch_specs, 12)
+    with pytest.raises((TypeError, ValueError)):
+        hops.hll_fold(planes, (10, 11, 12), 12)
 
 
 def test_wrappers_reject_what_the_kernels_cannot_take():
@@ -239,6 +311,11 @@ def test_wrappers_reject_what_the_kernels_cannot_take():
     with pytest.raises(ValueError, match="columns"):
         fops.fused_scan(planes, FULL_PLAN.program, FULL_PLAN.n_counters,
                         (("bad", (COL_S, 13)),), 12)
+    with pytest.raises(ValueError, match="hll p"):
+        hops.hll_fold(planes, (11,), 3)
+    for bad in ((), (13,), (-1,), tuple(range(N_PLANES)) + (0,)):
+        with pytest.raises(ValueError, match="columns"):
+            hops.hll_fold(planes, bad, 12)
 
 
 # --- on the card --------------------------------------------------------------------
@@ -323,3 +400,37 @@ def test_gpu_ragged_tail_is_race_free(cuda):
         counts, regs = fops.fused_scan(planes, program, 2, specs, 12)
         assert torch.equal(counts, want_counts)
         assert torch.equal(regs["o"], want_regs["o"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 8193, 100_003])
+@pytest.mark.parametrize("p", [4, 8, 12, 14, 15, 16])
+def test_gpu_hll_fold_matches_plain(cuda, n, p):
+    """Shared-memory banks (p <= 14) and the global bank (p > 14) alike,
+    for each sketch's columns; the launch is counted once."""
+    planes = torch.from_numpy(_planes(n, seed=n + p, pad_rows=3)).to(cuda)
+    for cols in SKETCH_COLS:
+        before = K.LAUNCHES["hll_fold"]
+        regs = hops.hll_fold(planes, cols, p)
+        assert K.LAUNCHES["hll_fold"] == before + 1
+        assert torch.equal(regs, href.hll_fold_torch(planes, cols, p)), cols
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [8, 12, 14, 16])
+def test_gpu_fused_scan_banks_equal_hll_fold(cuda, p):
+    planes = torch.from_numpy(_planes(50_001, seed=p, pad_rows=3)).to(cuda)
+    _, regs = fops.fused_scan(planes, FULL_PLAN.program, FULL_PLAN.n_counters,
+                              FULL_PLAN.sketch_specs, p)
+    for name, cols in FULL_PLAN.sketch_specs:
+        assert torch.equal(regs[name], hops.hll_fold(planes, cols, p)), name
+
+
+@pytest.mark.gpu
+def test_gpu_hll_fold_unaligned_planes(cuda):
+    base = torch.from_numpy(_planes(9000, seed=5)).to(cuda)
+    planes = base.reshape(-1)[N_PLANES:].reshape(-1, N_PLANES)  # 52 B in
+    assert planes.data_ptr() % 16 != 0
+    for cols in SKETCH_COLS:
+        assert torch.equal(hops.hll_fold(planes, cols, 12),
+                           href.hll_fold_torch(planes, cols, 12)), cols

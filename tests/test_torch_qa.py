@@ -1,15 +1,17 @@
-"""``repro_torch.qa`` against ``repro.qa``: the single-shot assessment,
-the DQV report, and chunk states carried between the two packages.
+"""``repro_torch.qa`` against ``repro.qa``: the single-shot assessment on
+every backend, the chunked, pipelined and streamed execution modes, the
+DQV report, and chunk states carried between the two packages.
 
 The port runs with ``device="cpu"`` (its kernel wrappers then run their
 plain torch versions); the JAX package runs its ``jnp`` backend and its
-``fused_scan`` Pallas kernel in interpret mode, as its own tests do.
+Pallas kernels in interpret mode, as its own tests do.
 
 Tolerances: counters, register banks, ``n_triples``, ``passes`` and every
 value derived only from counters are exact. ``sketch_estimates``,
 ``CN2_EXACT`` and ``SCH1`` come from the float32 HLL estimator, whose sum
 of ``exp2(-regs)`` XLA and torch add in different orders: ``rel=1e-6``.
 """
+import dataclasses
 import gzip
 import json
 import os
@@ -35,7 +37,7 @@ from repro_torch.rdf import bsbm_ntriples, synth_encoded
 BASE = ("http://bsbm.example.org/",)
 SKETCH_VALUES = set(SKETCH_METRICS)          # CN2_EXACT, SCH1
 # the port's backend -> the JAX backend that makes the same passes
-JAX_BACKEND = {"torch": "jnp", "fused_scan": "fused_scan"}
+JAX_BACKEND = {"torch": "jnp", "twopass": "pallas", "fused_scan": "fused_scan"}
 
 
 @pytest.fixture(scope="module")
@@ -70,7 +72,7 @@ def assert_same_result(res, ref):
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "per-metric"])
-@pytest.mark.parametrize("backend", ["torch", "fused_scan"])
+@pytest.mark.parametrize("backend", ["torch", "twopass", "fused_scan"])
 @pytest.mark.parametrize("data", ["bsbm", "synth"])
 def test_assess_matches_jax(datasets, data, backend, fused):
     ds = datasets[data]
@@ -79,6 +81,125 @@ def test_assess_matches_jax(datasets, data, backend, fused):
     ref = jqa.assess(_jax_input(ds), metrics="all",
                      backend=JAX_BACKEND[backend], fused=fused, base=BASE)
     assert_same_result(res, ref)
+
+
+def test_twopass_measures_one_plus_s_passes():
+    """The counter scan plus one fold per sketch, measured by the scan
+    counter, as the JAX pallas backend measures it."""
+    ev = QualityEvaluator(ALL_METRICS, backend="twopass", device="cpu")
+    assert len(ev._all_sketch_specs()) == 2
+    assert ev.passes_per_chunk == 3
+    assert JEvaluator(ALL_METRICS, backend="pallas").passes_per_chunk == 3
+    paper = QualityEvaluator(("L1", "I2"), backend="twopass", device="cpu")
+    assert paper.passes_per_chunk == 1
+    per_metric = QualityEvaluator(ALL_METRICS, backend="twopass",
+                                  fused=False, device="cpu")
+    assert per_metric.passes_per_chunk == JEvaluator(
+        ALL_METRICS, backend="pallas", fused=False).passes_per_chunk
+
+
+# --- execution modes ------------------------------------------------------------
+
+EXEC_MODES = {
+    "chunked": lambda p: p.chunked(8),
+    "pipelined-1": lambda p: p.chunked(8).pipelined(1),
+    "pipelined-2": lambda p: p.chunked(8).pipelined(2),
+    "speculative": lambda p: p.chunked(8).speculative(),
+}
+
+
+@pytest.mark.parametrize("backend", ["torch", "twopass", "fused_scan"])
+@pytest.mark.parametrize("mode", sorted(EXEC_MODES))
+def test_execution_modes_match_jax_and_single_shot(datasets, mode, backend):
+    """Chunked runs, sequential or pipelined, give the JAX package's result
+    in the same mode and the port's own single-shot result."""
+    tt = datasets["synth"]
+    pipe = EXEC_MODES[mode](qa.pipeline().metrics("all").backend(backend)
+                            .device("cpu"))
+    res = pipe.run(tt)
+    jpipe = EXEC_MODES[mode](jqa.pipeline().metrics("all").backend(
+        JAX_BACKEND[backend]))
+    assert_same_result(res, jpipe.run(_jax_input(tt)))
+    single = qa.assess(tt, metrics="all", backend=backend, device="cpu")
+    assert res.counts == single.counts and res.values == single.values
+    for k in single.registers:
+        np.testing.assert_array_equal(res.registers[k], single.registers[k])
+    st = res.exec_stats
+    assert st.chunks_total == 8 and len(st.chunk_eval_seconds) == 8
+    assert st.mode == ("pipelined" if pipe.exec.prefetch else "sync")
+    assert st.passes_per_chunk == pipe.evaluator().passes_per_chunk
+    assert res.passes == 8 * st.passes_per_chunk and st.wall_seconds > 0
+
+
+@pytest.mark.parametrize("prefetch", [0, 2])
+@pytest.mark.parametrize("source", ["text", "bytes", "path", "chunks"])
+def test_streamed_ingest_matches_jax_and_single_shot(datasets, tmp_path,
+                                                     source, prefetch):
+    """N-Triples streamed in blocks of rows, or an iterable of chunks,
+    through the scheduler: the same result as the JAX package's streamed
+    run and the port's single shot of the same text."""
+    text = datasets["bsbm"]
+    pipe = qa.pipeline().metrics("all").base(*BASE).device("cpu") \
+        .pipelined(prefetch)
+    jpipe = jqa.pipeline().metrics("all").base(*BASE).backend(
+        "fused_scan").pipelined(prefetch)
+    if source == "chunks":
+        lines = text.splitlines(keepends=True)
+        blocks = ["".join(lines[i:i + 97]) for i in range(0, len(lines), 97)]
+        data, jdata = iter(blocks), iter(blocks)
+        n_chunks = len(blocks)
+    else:
+        pipe, jpipe = pipe.streamed(101), jpipe.streamed(101)
+        data = {"text": text, "bytes": text.encode()}.get(source)
+        if data is None:
+            path = tmp_path / "d.nt"
+            path.write_text(text)
+            data = str(path)
+        jdata = data
+        n_chunks = None
+    res = pipe.run(data)
+    assert_same_result(res, jpipe.run(jdata))
+    single = qa.pipeline().metrics("all").base(*BASE).device("cpu").run(text)
+    assert res.counts == single.counts and res.values == single.values
+    assert res.n_triples == single.n_triples
+    assert res.exec_stats.chunks_total == (
+        n_chunks or -(-single.n_triples // 101))
+    if source == "chunks":
+        # blocks are encoded one by one: term ids differ from a single
+        # encode, but counters and content-hash registers do not
+        for k in single.registers:
+            np.testing.assert_array_equal(res.registers[k],
+                                          single.registers[k])
+
+
+def test_execution_config_validation():
+    """Every construction path validates, as ``repro.qa`` does."""
+    with pytest.raises(ValueError, match="backend"):
+        qa.pipeline().backend("tpu9000")
+    with pytest.raises(ValueError, match="backend"):
+        qa.ExecutionConfig(backend="pallas")
+    with pytest.raises(ValueError, match="prefetch"):
+        qa.ExecutionConfig(prefetch=-1)
+    with pytest.raises(ValueError, match="chunks"):
+        qa.ExecutionConfig(chunks=-1)
+    with pytest.raises(ValueError, match="stream_triples"):
+        qa.pipeline().streamed(-5)
+    with pytest.raises(ValueError, match="unknown metrics"):
+        qa.pipeline().metrics("paper,NOT_A_METRIC")
+    with pytest.raises(ValueError, match="no metrics"):
+        qa.pipeline().metrics("")
+    p1 = qa.pipeline().metrics("paper")
+    p2 = p1.backend("twopass").chunked(4, checkpoint_dir="/x").streamed(9)
+    assert p1.exec.chunks == 0 and p2.exec.chunks == 4
+    assert p2.exec.checkpoint_dir == "/x" and p2.exec.stream_triples == 9
+    assert p2.single_shot().exec == dataclasses.replace(
+        p2.exec, chunks=0, checkpoint_dir=None, stream_triples=0)
+    assert repr(p2.pipelined(2).speculative()) == (
+        "qa.Pipeline[7 metrics | fused | twopass | hll_p=12 | chunked×4 "
+        "streamed@9 async×2 ckpt=/x | cuda]")
+    assert "speculative" in repr(p2.speculative())
+    with pytest.warns(RuntimeWarning, match="speculate"):
+        p2.pipelined(1).speculative().device("cpu").scheduler()
 
 
 def _without_times(dqv):
@@ -193,7 +314,11 @@ def test_pipeline_surface(tmp_path, datasets):
     with pytest.raises(FileNotFoundError):
         p.run(str(tmp_path / "missing.nt"))
     with pytest.raises(TypeError):
-        p.run([text])
+        p.run(3.5)
+    with pytest.raises(TypeError):
+        p.run([3.5])
+    stream = p.run([text])                   # one chunk, through the scheduler
+    assert stream.values == ref.values and stream.exec_stats.chunks_total == 1
     with pytest.raises(ValueError, match="backend"):
         qa.pipeline().backend("jnp")
     with pytest.raises(ValueError, match="unknown metrics"):
@@ -226,12 +351,14 @@ def test_default_runs_on_the_card_or_raises(datasets):
     else:
         with pytest.raises((RuntimeError, AssertionError)):
             qa.assess(datasets["synth"], metrics="all")
-        assert K.LAUNCHES == {"qap_count": 0, "fused_scan": 0}
+        assert K.LAUNCHES == {"qap_count": 0, "fused_scan": 0, "hll_fold": 0}
 
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, repro_torch, repro_torch.qa, repro_torch.core, "
-            "repro_torch.kernels.fused_scan, repro_torch.kernels._build\n"
+            "repro_torch.kernels.fused_scan, repro_torch.kernels._build, "
+            "repro_torch.dist, repro_torch.checkpoint, "
+            "repro_torch.kernels.hll\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.'))\n"
@@ -267,3 +394,43 @@ def test_gpu_kernels_match_plain_backend(cuda, datasets, data, fused):
     for k in plain.registers:
         np.testing.assert_array_equal(res.registers[k], plain.registers[k])
     assert res.values == plain.values
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("data", ["bsbm", "synth"])
+def test_gpu_twopass_launches_one_fold_per_sketch(cuda, datasets, data):
+    ds = datasets[data]
+    K.reset_launches()
+    res = qa.assess(ds, metrics="all", backend="twopass", base=BASE)
+    assert K.LAUNCHES == {"qap_count": 1, "fused_scan": 0, "hll_fold": 2}
+    assert res.passes == 3
+    plain = qa.assess(ds, metrics="all", backend="torch", base=BASE)
+    assert res.counts == plain.counts and res.values == plain.values
+    for k in plain.registers:
+        np.testing.assert_array_equal(res.registers[k], plain.registers[k])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["twopass", "fused_scan"])
+@pytest.mark.parametrize("prefetch", [0, 1, 2])
+def test_gpu_chunked_and_pipelined_match_single_shot(cuda, datasets, backend,
+                                                     prefetch):
+    """Chunks of differing sizes through the pinned side-stream copies
+    (prefetch > 0) or the plain copies (0): the single-shot result."""
+    tt = synth_encoded(300_007, seed=11)
+    single = qa.assess(tt, metrics="all", backend=backend)
+    sizes = [1, 70_000, 3, 130_000, 0, 100_003]
+    starts = np.cumsum([0] + sizes)
+    chunks = [tt.take(int(b)).planes[int(a):] for a, b in
+              zip(starts[:-1], starts[1:])]
+    from repro_torch.rdf import TripleTensor
+    stream = [TripleTensor(np.ascontiguousarray(c), len(c)) for c in chunks]
+    K.reset_launches()
+    res = qa.pipeline().metrics("all").backend(backend).pipelined(
+        prefetch).run(iter(stream))
+    kernel = "fused_scan" if backend == "fused_scan" else "hll_fold"
+    assert K.LAUNCHES[kernel] == (5 if kernel == "fused_scan" else 10)
+    assert res.counts == single.counts and res.values == single.values
+    for k in single.registers:
+        np.testing.assert_array_equal(res.registers[k], single.registers[k])
+    assert res.exec_stats.mode == ("pipelined" if prefetch else "sync")
