@@ -79,6 +79,7 @@ class QualityEvaluator:
         self.plans: list[Plan] = (
             [plan(self.metrics)] if fused
             else [plan_single(m) for m in self.metrics])
+        self._scans_compiled = False
 
     # -- single-pass core (one plan) ------------------------------------------
     def _local_pass_fn(self, pln: Plan):
@@ -183,7 +184,23 @@ class QualityEvaluator:
         ``eval_chunk``. Pair with ``materialize_chunk``."""
         if isinstance(arr, StagedPlanes):
             arr = arr.consume()
+        if arr.device.type == "cuda" and not self._scans_compiled:
+            self._compile_scans()
         return [fn(arr) for fn in self._pass_fns]
+
+    def _compile_scans(self) -> None:
+        """Compile every plan's scan kernel at once, in parallel, before
+        the first launch on a card (per-metric mode has one plan a
+        metric); the launches then find them in the process's cache."""
+        if self.backend in ("fused_scan", "twopass"):
+            from ..kernels import _build
+            _build.compile_scans(
+                _build.scan_source(
+                    pln.program, pln.n_counters,
+                    pln.sketch_specs if self.backend == "fused_scan"
+                    else (), self.hll_p)
+                for pln in self.plans)
+        self._scans_compiled = True
 
     @staticmethod
     def materialize_chunk(outs):

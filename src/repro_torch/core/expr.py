@@ -183,7 +183,7 @@ VALID_BIT = 1 << 3       # vocab.VALID
 
 def eval_program_torch(planes: torch.Tensor, program,
                        n_counters: int) -> torch.Tensor:
-    """Reference stack-machine interpreter (mirrors the CUDA kernels) →
+    """Reference stack-machine interpreter (what the CUDA kernels compute) →
     ``(n_counters,)`` int64 counts on ``planes.device``.
 
     Every EMIT is masked by the row VALID bit — padding rows are invisible

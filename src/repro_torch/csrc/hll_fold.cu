@@ -11,16 +11,16 @@
 // A bank larger than SHARED_BANK_BYTES (p > 14) is raised in place in the
 // global output instead. Max is order-independent, so the registers are
 // bit-identical to the plain version whatever order blocks run in. The
-// hash, rank and update (scan_common.cuh) are the ones fused_scan.cu uses.
+// hash, rank and update (scan_common.cuh) are the ones the
+// plan-specialized scan kernel (scan_spec.cuh) uses.
 //
 // Reading the rows: a thread reads the few words of its row it needs (the
 // sketch's columns and s_flags) straight from global memory, one row per
-// thread in a grid-stride loop. Unlike the scan kernels it stages no tile:
-// with no program to interpret there is nothing to amortise a staged tile
-// over, and without a staging barrier the loads of every warp on an SM
-// overlap. The words a sketch reads lie within one or two 32-byte sectors
-// of a 52-byte row, so the traffic from memory stays about one read of the
-// planes.
+// thread in a grid-stride loop. Unlike the scan kernel it stages no tile:
+// it needs a few words of a row, not the whole row, and without a staging
+// barrier the loads of every warp on an SM overlap. The words a sketch
+// reads lie within one or two 32-byte sectors of a 52-byte row, so the
+// traffic from memory stays about one read of the planes.
 //
 // What bounds it on an H100: the bytes, 52 a row read once (4.26 GB at
 // 81,980,472 rows, at least 1.27 ms at 3.35 TB/s). The operations are far
@@ -33,6 +33,8 @@
 #include "scan_common.cuh"
 
 using namespace scan;
+
+constexpr int THREADS = 128;
 
 struct Columns {
   int n;
@@ -83,8 +85,8 @@ extern "C" int hll_fold(const int* planes, long long n_rows, const int* cols,
   const size_t smem = shared_bank ? bank_bytes : 0;
   const long long n_groups = (n_rows + THREADS - 1) / THREADS;
   cudaError_t err;
-  const int blocks = grid_blocks((const void*)hll_fold_kernel, smem,
-                                 n_groups, &err);
+  const int blocks = grid_blocks((const void*)hll_fold_kernel, THREADS,
+                                 smem, n_groups, &err);
   if (err != cudaSuccess) return (int)err;
   hll_fold_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       planes, n_rows, c, p, shared_bank, regs);

@@ -2,13 +2,17 @@
 
 * ``qap_count`` — fused multi-metric predicate+count scan (the paper's
   metric evaluation loop, one pass over the planes for all metrics).
-* ``fused_scan`` — the one-true-pass scan: counter bytecode AND every HLL
+* ``fused_scan`` — the one-true-pass scan: the counters AND every HLL
   sketch's register bank in the same pass over the planes.
 * ``hll`` (``hll_fold``) — one HLL sketch's register bank alone, one pass
   per sketch: the sketch half of the two-pass backend.
 
-Sources live in ``repro_torch/csrc``; ``_build`` compiles them with
-``nvcc`` on first use and binds them through ``ctypes``. Each wrapper in
+``qap_count`` and ``fused_scan`` are one kernel, specialized per plan:
+``scan_codegen`` prints the plan as straight-line CUDA around the
+hand-written block structure ``csrc/scan_spec.cuh``, and ``_build``
+compiles it with NVRTC on first use. ``hll_fold`` is a fixed source,
+``csrc/hll_fold.cu``, compiled with ``nvcc``. Both are bound through
+``ctypes``. Each wrapper in
 ``*/ops.py`` launches its kernel for a CUDA tensor and runs the plain torch
 version in ``*/ref.py`` only for a CPU tensor.
 

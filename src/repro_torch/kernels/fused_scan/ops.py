@@ -1,5 +1,7 @@
-"""Public wrapper for the fused counts+sketches CUDA kernel
-(``csrc/fused_scan.cu``).
+"""Public wrapper for the fused counts+sketches CUDA kernel: the
+plan-specialized scan kernel (``csrc/scan_spec.cuh``) generated for the
+program and the sketches (``kernels/scan_codegen.py``), compiled with
+NVRTC on first use.
 
 For a CUDA tensor the wrapper launches the kernel or raises; for a CPU
 tensor it runs the plain torch version (``ref.fused_scan_torch``). There
@@ -11,18 +13,18 @@ import numpy as np
 import torch
 
 from .. import _build, record_launch, record_scan
-from ..qap_count.ops import (check_planes, check_program, fused_count,
-                             program_tensor)
+from ..qap_count.ops import check_planes, check_program, fused_count
 from ...rdf.triple_tensor import N_PLANES
 from .ref import fused_scan_torch
 
-MAX_SKETCHES = 16    # sketch table size in the kernel's parameters
+MAX_SKETCHES = 16    # most sketches one plan may have
 P_RANGE = (4, 20)    # register bank sizes 2^4 .. 2^20
 
 
 def check_sketches(sketch_specs, p: int) -> np.ndarray:
-    """Validate sketch specs and ``p``; returns the kernel's host table:
-    one row of ``N_PLANES + 1`` int32 per sketch, ``(n_cols, cols...)``."""
+    """Validate sketch specs and ``p``; returns a host table, one row of
+    ``N_PLANES + 1`` int32 per sketch, ``(n_cols, cols...)`` (``hll_fold``
+    takes its columns from it)."""
     if not P_RANGE[0] <= p <= P_RANGE[1]:
         raise ValueError(f"hll p={p}; the kernel takes {P_RANGE[0]}.."
                          f"{P_RANGE[1]}")
@@ -54,7 +56,7 @@ def fused_scan(planes: torch.Tensor, program, n_counters: int,
     record_scan(1)
     check_planes(planes)
     check_program(program, n_counters)
-    table = check_sketches(sketch_specs, p)
+    check_sketches(sketch_specs, p)
     if planes.device.type == "cpu":
         return fused_scan_torch(planes, program, n_counters, sketch_specs, p)
     dev = planes.device
@@ -62,15 +64,8 @@ def fused_scan(planes: torch.Tensor, program, n_counters: int,
     regs = torch.zeros((len(sketch_specs), 1 << p), dtype=torch.int32,
                        device=dev)
     if planes.shape[0]:
-        lib = _build.load("fused_scan")
         with torch.cuda.device(dev):
-            prog = program_tensor(tuple(program), dev)
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.fused_scan(planes.data_ptr(), planes.shape[0],
-                                 prog.data_ptr(), len(program), n_counters,
-                                 counts.data_ptr(), table.ctypes.data,
-                                 len(sketch_specs), p, regs.data_ptr(),
-                                 stream)
-        _build.check("fused_scan", err)
+            _build.launch_scan(planes, program, n_counters, sketch_specs, p,
+                               counts, regs)
         record_launch("fused_scan")
     return counts, {name: regs[i] for i, (name, _) in enumerate(sketch_specs)}

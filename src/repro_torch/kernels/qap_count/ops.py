@@ -1,4 +1,6 @@
-"""Public wrapper around the qap_count CUDA kernel (``csrc/qap_count.cu``).
+"""Public wrapper around the qap_count CUDA kernel: the plan-specialized
+scan kernel (``csrc/scan_spec.cuh``) generated for the program with no
+sketches (``kernels/scan_codegen.py``), compiled with NVRTC on first use.
 
 For a CUDA tensor the wrapper launches the kernel or raises; for a CPU
 tensor it runs the plain torch version (``ref.counts_ref``). There is no
@@ -6,9 +8,6 @@ fallback from one to the other.
 """
 from __future__ import annotations
 
-import functools
-
-import numpy as np
 import torch
 
 from .. import _build, record_launch, record_scan
@@ -17,8 +16,8 @@ from ...rdf.triple_tensor import N_PLANES
 from .ref import counts_ref
 
 COUNTS_WIDTH = 128   # most counters one program may have (kernel's table)
-MAX_STACK = 16       # deepest evaluation stack the kernels hold
-MAX_INSTR = 4096     # longest program staged in shared memory (48 KiB)
+MAX_STACK = 16       # deepest evaluation stack a program may have
+MAX_INSTR = 4096     # longest program the generator takes
 
 
 def check_planes(planes: torch.Tensor) -> None:
@@ -72,14 +71,6 @@ def check_program(program, n_counters: int) -> int:
     return max_depth
 
 
-@functools.lru_cache(maxsize=64)
-def program_tensor(program, device: torch.device) -> torch.Tensor:
-    """The program as a flat int32 array of (op, a, b) triples on
-    ``device`` (cached: plans are immutable and reused across calls)."""
-    flat = np.asarray(program, np.int64).reshape(-1)
-    return torch.from_numpy(flat.astype(np.int32)).to(device)
-
-
 def fused_count(planes: torch.Tensor, program, n_counters: int):
     """Evaluate the fused bytecode over (N, 13) planes → (n_counters,)
     int64 counts. Zero rows (padding) carry no VALID bit and count in no
@@ -93,13 +84,8 @@ def fused_count(planes: torch.Tensor, program, n_counters: int):
                          device=planes.device)
     if planes.shape[0] == 0 or not program:
         return counts
-    lib = _build.load("qap_count")
     with torch.cuda.device(planes.device):
-        prog = program_tensor(tuple(program), planes.device)
-        stream = torch.cuda.current_stream(planes.device).cuda_stream
-        err = lib.qap_count(planes.data_ptr(), planes.shape[0],
-                            prog.data_ptr(), len(program), n_counters,
-                            counts.data_ptr(), stream)
-    _build.check("qap_count", err)
+        _build.launch_scan(planes, program, n_counters, (), None, counts,
+                           None)
     record_launch("qap_count")
     return counts

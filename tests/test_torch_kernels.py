@@ -10,6 +10,8 @@ must be bit-identical.
 Tests marked ``gpu`` hold the CUDA kernels to the plain versions on the
 card; they skip where there is none.
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -21,9 +23,10 @@ from repro.core.metrics import ALL_METRICS as J_ALL, get_metrics as j_get
 from repro.core.planner import plan as j_plan
 from repro.kernels.fused_scan import ops as j_fops
 from repro.kernels.hll import ops as j_hops, ref as j_href
-from repro.kernels.qap_count import ops as j_qops
+from repro.kernels.qap_count import ops as j_qops, ref as j_qref
 
 from repro_torch import kernels as K
+from repro_torch.kernels import _build, scan_codegen
 from repro_torch.core import expr as TE
 from repro_torch.core.metrics import (ALL_METRICS, PAPER_METRICS,
                                       get_metrics)
@@ -87,6 +90,48 @@ def _rand_program(seed, E):
     rng = np.random.default_rng(seed)
     exprs = [_rand_expr(rng, E, 4) for _ in range(int(rng.integers(1, 8)))]
     return E.compile_program(exprs), len(exprs)
+
+
+def _limit_program(which, E):
+    """A program at the wrappers' limits. ``wide``: COUNTS_WIDTH random
+    counters, the last a chain that needs a MAX_STACK-deep stack.
+    ``long``: random counters of 48 or more instructions each, up to
+    MAX_INSTR - 1 instructions in all."""
+    rng = np.random.default_rng(4096)
+    if which == "wide":
+        exprs = [_rand_expr(rng, E, 3) for _ in range(qops.COUNTS_WIDTH - 1)]
+        e = E.Cmp(6, "gt", 20)
+        for i in range(qops.MAX_STACK - 1):
+            e = (E.And if i % 2 else E.Or)(E.HasBits(3 + i % 6, 1 << i), e)
+        exprs.append(e)
+    else:
+        exprs, n = [], 0
+        while n < qops.MAX_INSTR - 1 and len(exprs) < qops.COUNTS_WIDTH:
+            e = _rand_expr(rng, E, 8)
+            m, left = len(E.compile_program([e])), qops.MAX_INSTR - n
+            if min(48, left) <= m <= left:
+                exprs.append(e)
+                n += m
+    return E.compile_program(exprs), len(exprs)
+
+
+@pytest.mark.parametrize("which", ["wide", "long"])
+def test_limit_programs_reach_the_limits(which):
+    """The programs the ``gpu`` tests compile at the limits, on the CPU:
+    at the limits, and the plain version equals the JAX package's numpy
+    interpreter on them."""
+    program, k = _limit_program(which, TE)
+    j_program, j_k = _limit_program(which, JE)
+    assert program == j_program and k == j_k
+    depth = qops.check_program(program, k)
+    if which == "wide":
+        assert k == qops.COUNTS_WIDTH and depth == qops.MAX_STACK
+    else:
+        assert qops.MAX_INSTR - 1 <= len(program) <= qops.MAX_INSTR
+    planes = _planes(2000, seed=9, pad_rows=3)
+    got = qops.fused_count(torch.from_numpy(planes), program, k).numpy()
+    np.testing.assert_array_equal(got, j_qref.counts_ref_np(planes,
+                                                            j_program, k))
 
 
 # --- qap_count ------------------------------------------------------------------
@@ -318,6 +363,66 @@ def test_wrappers_reject_what_the_kernels_cannot_take():
             hops.hll_fold(planes, bad, 12)
 
 
+def test_spec_cache_compiles_each_plan_once_in_parallel(monkeypatch):
+    """The kernel cache without a card (the compile replaced by a stub
+    that waits until three compiles run at once): three plans compile in
+    parallel, outside the cache's lock, each once; threads that ask for a
+    plan being compiled wait for it and count as hits."""
+    # the three compiles and this thread
+    started, release = threading.Barrier(4, timeout=30), threading.Event()
+    calls = []
+
+    def fake_compile(src):
+        calls.append(src.digest)
+        started.wait()           # all three compiles are running at once
+        release.wait(30)
+        return _build.SpecKernel(src, src.digest, b"", "", "compiled", 0.0)
+
+    monkeypatch.setattr(_build, "_load_or_compile", fake_compile)
+    monkeypatch.setattr(_build, "_specs", {})
+    srcs = [scan_codegen.generate(((TE.OP_GT, 6, i), (TE.OP_EMIT, 0, 0)), 1)
+            for i in range(3)]
+    before = dict(_build.spec_stats)
+    out = {}
+
+    def ask(i, src):
+        out[i] = _build.spec_kernel(src)
+
+    threads = [threading.Thread(target=ask, args=(i, srcs[i % 3]))
+               for i in range(9)]
+    for th in threads:
+        th.start()
+    started.wait()
+    release.set()
+    for th in threads:
+        th.join(30)
+    assert sorted(calls) == sorted(s.digest for s in srcs)
+    assert len(out) == 9
+    for i, kern in out.items():
+        assert kern is out[i % 3] and kern.src is srcs[i % 3]
+    delta = {k: _build.spec_stats[k] - before[k] for k in before}
+    assert delta == {"compiled": 3, "loaded": 0, "hits": 6}
+    assert not _build._pending
+    got = _build.compile_scans(srcs)
+    assert got == [out[0], out[1], out[2]]
+    assert _build.spec_stats["hits"] - before["hits"] == 9
+
+
+def test_spec_cache_forgets_a_failed_compile(monkeypatch):
+    """A compile that fails raises in every thread that waited for it and
+    leaves nothing behind: the next call compiles again."""
+    def broken(src):
+        raise RuntimeError("NVRTC failed")
+
+    monkeypatch.setattr(_build, "_load_or_compile", broken)
+    monkeypatch.setattr(_build, "_specs", {})
+    src = scan_codegen.generate(((TE.OP_GT, 6, 7), (TE.OP_EMIT, 0, 0)), 1)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="NVRTC failed"):
+            _build.spec_kernel(src)
+        assert not _build._pending and src.digest not in _build._specs
+
+
 # --- on the card --------------------------------------------------------------------
 
 @pytest.fixture
@@ -340,10 +445,15 @@ def test_gpu_qap_count_matches_plain(cuda, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("seed", [*range(6), "wide", "long"])
 def test_gpu_qap_count_random_programs(cuda, seed):
-    program, k = _rand_program(seed, TE)
-    planes = torch.from_numpy(_planes(5000 + seed, seed=seed)).to(cuda)
+    """Random programs, and the programs at the limits: 128 counters and
+    a 16-deep stack, and 4,095 instructions."""
+    if isinstance(seed, str):
+        (program, k), n, data_seed = _limit_program(seed, TE), 100_003, 9
+    else:
+        (program, k), n, data_seed = _rand_program(seed, TE), 5000 + seed, seed
+    planes = torch.from_numpy(_planes(n, seed=data_seed)).to(cuda)
     assert torch.equal(qops.fused_count(planes, program, k),
                        qref.counts_ref(planes, program, k))
 
@@ -363,6 +473,24 @@ def test_gpu_fused_scan_matches_plain(cuda, n, p):
     assert torch.equal(counts, want_counts)
     for name in want_regs:
         assert torch.equal(regs[name], want_regs[name]), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["wide", "long"])
+@pytest.mark.parametrize("p", [12, 16])
+def test_gpu_fused_scan_at_the_limits(cuda, which, p):
+    """The programs at the limits with both default sketches, banks in
+    shared (p = 12) and global memory (p = 16)."""
+    program, k = _limit_program(which, TE)
+    specs = FULL_PLAN.sketch_specs
+    planes = torch.from_numpy(_planes(100_003, seed=p, pad_rows=3)).to(cuda)
+    counts, regs = fops.fused_scan(planes, program, k, specs, p)
+    want_counts, want_regs = fref.fused_scan_torch(planes, program, k,
+                                                   specs, p)
+    assert torch.equal(counts, want_counts)
+    for name, cols in specs:
+        assert torch.equal(regs[name], want_regs[name]), name
+        assert torch.equal(regs[name], hops.hll_fold(planes, cols, p)), name
 
 
 @pytest.mark.gpu
@@ -434,3 +562,124 @@ def test_gpu_hll_fold_unaligned_planes(cuda):
     for cols in SKETCH_COLS:
         assert torch.equal(hops.hll_fold(planes, cols, 12),
                            href.hll_fold_torch(planes, cols, 12)), cols
+
+
+# --- the plan-specialized scan kernel on the card ------------------------------
+
+def _kernel_of(pln, p=12):
+    """The generated source and the compiled kernel of a plan's scan."""
+    specs = tuple(pln.sketch_specs)
+    src = scan_codegen.generate_cached(tuple(pln.program), pln.n_counters,
+                                       specs, p if specs else None)
+    return src, _build.spec_kernel(src)
+
+
+def _check_scan(planes, pln, p=12):
+    if pln.sketch_specs:
+        counts, regs = fops.fused_scan(planes, pln.program, pln.n_counters,
+                                       pln.sketch_specs, p)
+        want_counts, want_regs = fref.fused_scan_torch(
+            planes, pln.program, pln.n_counters, pln.sketch_specs, p)
+        for name in want_regs:
+            assert torch.equal(regs[name], want_regs[name]), name
+    else:
+        counts = qops.fused_count(planes, pln.program, pln.n_counters)
+        want_counts = qref.counts_ref(planes, pln.program, pln.n_counters)
+    assert torch.equal(counts, want_counts)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["paper", "all"])
+def test_gpu_scan_ring_boundaries(cuda, which):
+    """Row counts at the edges of a tile and of the ring of stages: one
+    tile and one row either side, one full ring of one block and one row
+    more, and enough tiles that every block of the persistent grid wraps
+    its ring (once, and twice plus a ragged tail)."""
+    pln = PAPER_PLAN if which == "paper" else FULL_PLAN
+    src, kern = _kernel_of(pln)
+    t, s = scan_codegen.TILE_ROWS, scan_codegen.STAGES
+    _check_scan(torch.from_numpy(_planes(t, seed=1)).to(cuda), pln)
+    res = kern.resources[cuda.index or 0]
+    blocks = res["sms"] * res["blocks_per_sm"]
+    for n in (t - 1, t, t + 1, s * t, s * t + 1, blocks * s * t,
+              blocks * s * t + 1, blocks * (2 * s + 1) * t + 5):
+        planes = torch.from_numpy(_planes(n, seed=n)).to(cuda)
+        _check_scan(planes, pln)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset_rows", [1, 2, 3, 4])
+def test_gpu_scan_views_across_stage_boundaries(cuda, offset_rows):
+    """Views that start 1-4 rows into their tensor: 52-208 bytes in, so
+    only the 4-row offset is 16-byte aligned (bulk copies); the others
+    stage word by word. Each spans several stages and ends mid-tile."""
+    t, s = scan_codegen.TILE_ROWS, scan_codegen.STAGES
+    base = torch.from_numpy(_planes(2 * s * t + 300, seed=offset_rows,
+                                    pad_rows=2)).to(cuda)
+    planes = base.reshape(-1)[offset_rows * N_PLANES:].reshape(-1, N_PLANES)
+    assert (planes.data_ptr() % 16 == 0) == (offset_rows == 4)
+    for pln in (FULL_PLAN, PAPER_PLAN):
+        _check_scan(planes, pln)
+
+
+@pytest.mark.gpu
+def test_gpu_scan_global_banks_at_p16(cuda):
+    """Two sketches at p = 16 (512 KiB of registers) do not fit shared
+    memory: the generated kernel raises the global banks in place."""
+    src, _ = _kernel_of(FULL_PLAN, p=16)
+    assert not src.shared_banks
+    planes = torch.from_numpy(_planes(300_001, seed=16, pad_rows=3)).to(cuda)
+    _check_scan(planes, FULL_PLAN, p=16)
+    _, regs = fops.fused_scan(planes, FULL_PLAN.program, FULL_PLAN.n_counters,
+                              FULL_PLAN.sketch_specs, 16)
+    for name, cols in FULL_PLAN.sketch_specs:
+        assert torch.equal(regs[name], hops.hll_fold(planes, cols, 16)), name
+
+
+@pytest.mark.gpu
+def test_gpu_plan_compiled_once_then_cached(cuda, tmp_path, monkeypatch):
+    """A plan no other test uses compiles once; its second launch comes
+    from the process's cache, and a process without it loads the cubin
+    from the disk cache instead of compiling again."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    program = TE.compile_program([TE.Cmp(6, "gt", 4242),
+                                  TE.HasBits(3, 8) & TE.Cmp(7, "ne", 4242)])
+    planes = torch.from_numpy(_planes(20_000, seed=42)).to(cuda)
+    want = qref.counts_ref(planes, program, 2)
+    before = dict(_build.spec_stats)
+    launches = K.LAUNCHES["qap_count"]
+    for _ in range(2):
+        assert torch.equal(qops.fused_count(planes, program, 2), want)
+    delta = {k: _build.spec_stats[k] - before[k] for k in before}
+    assert delta == {"compiled": 1, "loaded": 0, "hits": 1}
+    assert K.LAUNCHES["qap_count"] - launches == 2
+    assert len(list(tmp_path.glob("scan_spec-*.cubin"))) == 1
+    monkeypatch.setattr(_build, "_specs", {})
+    assert torch.equal(qops.fused_count(planes, program, 2), want)
+    assert _build.spec_stats["loaded"] - before["loaded"] == 1
+    assert _build.spec_stats["compiled"] - before["compiled"] == 1
+
+
+@pytest.mark.gpu
+def test_gpu_scan_launches_from_a_new_thread(cuda):
+    """A thread that has made no CUDA call yet launches the kernel into
+    torch's context on the card (the scheduler's worker threads do)."""
+    planes = torch.from_numpy(_planes(70_001, seed=8)).to(cuda)
+    want = fref.fused_scan_torch(planes, FULL_PLAN.program,
+                                 FULL_PLAN.n_counters,
+                                 FULL_PLAN.sketch_specs, 12)
+    out = {}
+
+    def body():
+        out["got"] = fops.fused_scan(planes, FULL_PLAN.program,
+                                     FULL_PLAN.n_counters,
+                                     FULL_PLAN.sketch_specs, 12)
+        torch.cuda.synchronize(cuda)
+
+    th = threading.Thread(target=body)
+    th.start()
+    th.join()
+    counts, regs = out["got"]
+    assert torch.equal(counts, want[0])
+    for name in want[1]:
+        assert torch.equal(regs[name], want[1][name]), name
