@@ -52,6 +52,19 @@ Phases (one JSON line each, plus the last lines described below):
    through ``qa.assess`` and the DQV report, against the plain backend,
    and the same text streamed in chunks of 131,072 triples, against the
    single-shot result.
+5. incremental — the same text written to a file under ``build/`` and
+   assessed against one segment store (``repro_torch.store``, the default
+   1 MiB segments) in the six phases of ``benchmarks/fig_incremental.py``:
+   cold, warm, ~1% appended, ~1% mutated at 25%, ~10% mutated at 50%,
+   ~10% deleted at 20%. Each phase is held to the plain backend on the
+   card on the edited bytes, launches ``fused_scan`` once per rescanned
+   segment (none warm) and stays within the JAX benchmark's scan targets
+   (append ≤ 5% of bytes, 10% mutation and delete ≤ 15%). Then a warm
+   run of the same store through ``backend="twopass"`` rescans nothing,
+   and ``python -m repro_torch.launch.assess --store`` in a process of its
+   own prints ``0 rescanned`` and the last phase's values. Last, a cold
+   and a warm run on a fresh store under cProfile give the host seconds of
+   each step of the incremental runner (not part of the main path).
 
 Then one ``scan-kernels`` line: per compiled plan, the NVRTC compile
 time, ptxas' report (registers, shared memory, spills), the resident
@@ -109,6 +122,9 @@ MAIN_P = 12                    # hll precision of the main path (default)
 BSBM_PRODUCTS = 200_000
 BASE = ("http://bsbm.example.org/",)
 BUILD = os.path.join(ROOT, "build")   # listed in .gitignore
+# scan-fraction targets of benchmarks/fig_incremental.py
+SCAN_TARGETS = {"append_1pct": 0.05, "mutate_10pct": 0.15,
+                "delete_10pct": 0.15}
 # H100 SXM peaks: the device memory rate (NVIDIA data sheet), and the
 # scalar integer rate the kernels' operations run at: 64 INT32 lanes an SM
 # (Hopper architecture white paper) x 132 SMs x 1,980 MHz, the card's
@@ -475,8 +491,9 @@ def phase_kernels(all_plan, paper_plan, cover_plan, limits):
 def run_main_path(label, run, plain, expect, **extra):
     """Drive one main-path run with launch counts zeroed just before and
     read just after; hold it to ``plain``: the plain backend's run, or a
-    result already computed for the same input. Returns the launch counts
-    and the result."""
+    result already computed for the same input. ``expect`` gives each
+    kernel's launches, or computes them from the result. Returns the
+    launch counts and the result."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
@@ -486,6 +503,8 @@ def run_main_path(label, run, plain, expect, **extra):
     wall = time.perf_counter() - t
     launches = dict(K.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    if callable(expect):
+        expect = expect(res)
     for name, n in expect.items():
         check(launches[name] == n,
               f"{label}: {name} launched {launches[name]} times, "
@@ -503,6 +522,14 @@ def run_main_path(label, run, plain, expect, **extra):
                      chunk_eval_seconds_sum=sum(stats.chunk_eval_seconds),
                      attempts=stats.attempts, retries=stats.retries,
                      resumed_from=stats.resumed_from)
+        if stats.bytes_total:        # an incremental run: the store's part
+            extra.update(segments_reused=stats.segments_reused,
+                         segments_rescanned=stats.segments_rescanned,
+                         bytes_rescanned=stats.bytes_rescanned,
+                         bytes_total=stats.bytes_total,
+                         scan_fraction=stats.bytes_rescanned
+                         / stats.bytes_total,
+                         footprints_replayed=stats.footprints_replayed)
     emit({"phase": label, "n_triples": res.n_triples, "passes": res.passes,
           "launches": launches, "wall_s": wall, "plain_wall_s": plain_wall,
           "max_memory_allocated": peak, "values": res.values,
@@ -580,6 +607,146 @@ def resume_drill(tt):
         res, stats = ChunkScheduler(ev, **kw).run(tt)
     res.exec_stats = stats
     return res
+
+
+def _region(data: bytes, start_frac: float, size_frac: float):
+    """Line-aligned [a, b) spanning ~``size_frac`` of ``data`` (the helper
+    of ``benchmarks/fig_incremental.py``)."""
+    a = data.find(b"\n", int(len(data) * start_frac)) + 1
+    b = data.find(b"\n", a + int(len(data) * size_frac)) + 1
+    return a, b
+
+
+def incremental_phases(data: bytes):
+    """The edits of ``benchmarks/fig_incremental.py``, one after another:
+    (label, the dataset's bytes after it)."""
+    n = BSBM_PRODUCTS
+    yield "cold", data
+    yield "warm", data
+    data += bsbm_ntriples(max(1, n // 100), seed=4242).encode()
+    yield "append_1pct", data
+    a, b = _region(data, 0.25, 0.01)
+    data = data[:a] + bsbm_ntriples(max(1, n // 100),
+                                    seed=777).encode() + data[b:]
+    yield "mutate_1pct", data
+    a, b = _region(data, 0.5, 0.10)
+    data = data[:a] + bsbm_ntriples(n // 10, seed=778).encode() + data[b:]
+    yield "mutate_10pct", data
+    a, b = _region(data, 0.2, 0.10)
+    yield "delete_10pct", data[:a] + data[b:]
+
+
+def phase_incremental(text: str, add, expect):
+    """Phase 5: the BSBM text through one segment store, edit after edit,
+    each phase held to the plain backend; then a warm ``twopass`` run and
+    the CLI on the warm store."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_incremental_", dir=BUILD)
+    path = os.path.join(work, "data.nt")
+    store = os.path.join(work, "store")
+    try:
+        pipe = qa.pipeline().metrics("all").base(*BASE).incremental(store)
+        for label, data in incremental_phases(text.encode()):
+            with open(path, "wb") as f:
+                f.write(data)
+            res, _ = add(run_main_path(
+                f"incremental-{label}", lambda: pipe.run(path),
+                lambda: qa.assess(data, metrics="all", backend="torch",
+                                  base=BASE),
+                lambda r: expect(
+                    fused_scan=r.exec_stats.segments_rescanned)))
+            s = res.exec_stats
+            fraction = s.bytes_rescanned / s.bytes_total
+            check(s.bytes_total == len(data), f"{label}: bytes counted")
+            check(res.passes == s.segments_rescanned * s.passes_per_chunk,
+                  f"{label}: passes {res.passes}")
+            if label == "cold":
+                check(s.segments_reused == 0 and s.segments_rescanned
+                      == s.chunks_total, "cold: every segment scanned")
+            if label == "warm":
+                check(s.segments_rescanned == 0 and s.bytes_rescanned == 0
+                      and s.footprints_replayed == 0,
+                      "warm: nothing rescanned or replayed")
+            if label in SCAN_TARGETS:
+                check(fraction <= SCAN_TARGETS[label],
+                      f"{label}: rescanned {fraction:.1%} of the bytes, "
+                      f"target {SCAN_TARGETS[label]:.0%}")
+        last = res
+        res, _ = add(run_main_path(
+            "incremental-warm-twopass",
+            lambda: pipe.backend("twopass").run(path), last, expect()))
+        check(res.exec_stats.segments_rescanned == 0,
+              "a warm twopass run rescans nothing")
+        t = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.assess", "--nt", path,
+             "--store", store, "--base", BASE[0]],
+            env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")},
+            capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t
+        check(cli.returncode == 0, f"the CLI exited {cli.returncode}: "
+              f"{cli.stderr[-2000:]}")
+        check(" 0 rescanned" in cli.stderr, "the CLI rescanned nothing")
+        want = "".join(f"{k:10s} {v:.6f}\n"
+                       for k, v in sorted(last.values.items()))
+        check(cli.stdout == want, "the CLI prints the last phase's values")
+        emit({"phase": "incremental-cli", "seconds": cli_s,
+              "stderr": cli.stderr.strip().splitlines()})
+        profile_incremental(path, os.path.join(work, "profiled"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# where an incremental run's host time goes: (label, module path suffix,
+# function name) of the calls whose cumulative time the profile reports
+PROFILED = (
+    ("segmentation", "store/segmenter.py", "iter_segments"),
+    ("state loads", "store/store.py", "load_state"),
+    ("footprint replay", "store/runner.py", "replay_deferred"),
+    ("parse and encode", "rdf/ingest.py", "parse_encode"),
+    ("footprint capture", "store/runner.py", "_footprint_ids"),
+    ("footprint keys", "rdf/encoder.py", "keys_for"),
+    ("dictionary planes", "rdf/encoder.py", "plane_arrays"),
+    ("chunk evals (copy, launch, sync)", "core/evaluator.py", "eval_chunk"),
+    ("state writes", "store/store.py", "put_state"),
+    ("manifest commit", "store/store.py", "commit"),
+    ("history", "store/store.py", "append_history"),
+)
+
+
+def profile_incremental(path: str, store: str) -> None:
+    """A cold and a warm run of ``path`` on a fresh store under cProfile
+    (not part of the main path: its launches are not counted): the
+    cumulative seconds of each step of the incremental runner, against
+    the run's wall time under the profiler."""
+    import cProfile
+    import pstats
+    pipe = qa.pipeline().metrics("all").base(*BASE).incremental(store)
+    out = {}
+    calls = {name: 0 for name, _, _ in PROFILED}
+    for label in ("cold", "warm"):
+        prof = cProfile.Profile()
+        t = time.perf_counter()
+        prof.enable()
+        res = pipe.run(path)
+        torch.cuda.synchronize()
+        prof.disable()
+        wall = time.perf_counter() - t
+        stats = pstats.Stats(prof).stats
+        steps = {}
+        for name, suffix, fn in PROFILED:
+            hits = [v for (file, _, func), v in stats.items()
+                    if func == fn and file.endswith(suffix)]
+            steps[name] = sum(v[3] for v in hits)
+            calls[name] += sum(v[1] for v in hits)
+        out[label] = {"wall_s": wall,
+                      "segments_rescanned":
+                          res.exec_stats.segments_rescanned,
+                      "cumulative_s": steps}
+    # a renamed or inlined step would read 0 s: each must have been called
+    for name, suffix, fn in PROFILED:
+        check(calls[name] > 0, f"incremental-profile: {suffix}::{fn} "
+              f"({name}) was never called")
+    emit({"phase": "incremental-profile", "profiler": "cProfile", **out})
 
 
 def main() -> int:
@@ -711,6 +878,9 @@ def main() -> int:
         res, expect(fused_scan=n_stream)))
     check(streamed.exec_stats.chunks_total == n_stream,
           f"streamed in {streamed.exec_stats.chunks_total} chunks")
+
+    # -- 5. incremental: the text through the segment store, edit by edit ---
+    phase_incremental(text, add, expect)
 
     phase_scan_kernels(scan_kernel_labels(all_plan, paper_plan, cover_plan,
                                           limits))

@@ -118,6 +118,9 @@ class ChunkStats:
     chunks_total: int
     attempts: int = 0            # eval attempts in THIS run (incl. retries)
     retries: int = 0
+    # mesh row shards per chunk (1 = no mesh); the port has no mesh yet,
+    # its first writer is the multi-GPU slice (ROADMAP §A6)
+    devices: int = 1
     resumed_from: Optional[int] = None  # merge count at the restored ckpt
     checkpoints_written: int = 0
     mode: str = "sync"           # "sync" | "pipelined"
@@ -135,6 +138,16 @@ class ChunkStats:
     # backup copy dispatched; wins counts backups that finished first
     speculated: list = dataclasses.field(default_factory=list)
     speculation_wins: int = 0
+    # incremental (segment-store) runs: reuse accounting, see
+    # repro_torch.store
+    segments_reused: int = 0
+    segments_rescanned: int = 0
+    bytes_total: int = 0
+    bytes_rescanned: int = 0
+    # dictionary footprints actually replayed (lazy replay: reused
+    # segments after the last rescanned one never replay, and a fully
+    # warm run replays none)
+    footprints_replayed: int = 0
 
 
 class _ProducerError:

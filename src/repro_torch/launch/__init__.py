@@ -1,0 +1,2 @@
+"""Launchers of the port: the assessment CLI (``python -m
+repro_torch.launch.assess``)."""

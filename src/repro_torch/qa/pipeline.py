@@ -13,7 +13,9 @@ file path, raw N-Triples text, bytes (gzip is sniffed and decompressed),
 or an iterable of chunks (each itself a ``TripleTensor`` or N-Triples
 text) for streaming ingest. Single-shot execution puts the whole dataset
 on the device as one chunk; chunked, streamed and pipelined execution go
-through ``repro_torch.dist.ChunkScheduler``.
+through ``repro_torch.dist.ChunkScheduler``; incremental execution
+(``.incremental(store_dir)``) diffs the dataset's segments against a
+``repro_torch.store`` segment store and rescans only the changed ones.
 """
 from __future__ import annotations
 
@@ -54,6 +56,12 @@ class ExecutionConfig:
     prefetch: int = 0                  # >0: async pipelined chunk executor
     speculate: bool = False            # straggler backup copies (sync loop)
     device: str = "cuda"
+    store_dir: Optional[str] = None    # segment store: incremental mode
+    segment_bytes: int = 0             # target segment size (0 = default)
+    max_history: int = 0               # >0: keep only the newest N
+                                       # history.jsonl snapshots
+    dataset_uri: Optional[str] = None  # provenance URI for reports/history
+                                       # (None = the default urn)
 
     def __post_init__(self):
         # validate here so every construction path (fluent, qa.assess
@@ -68,6 +76,12 @@ class ExecutionConfig:
                 f"stream_triples must be >= 0, got {self.stream_triples}")
         if self.prefetch < 0:
             raise ValueError(f"prefetch must be >= 0, got {self.prefetch}")
+        if self.segment_bytes < 0:
+            raise ValueError(
+                f"segment_bytes must be >= 0, got {self.segment_bytes}")
+        if self.max_history < 0:
+            raise ValueError(
+                f"max_history must be >= 0, got {self.max_history}")
 
 
 def _resolve_metrics(spec) -> tuple[str, ...]:
@@ -193,10 +207,33 @@ class Pipeline:
         per chunk id.  Applies to the sequential chunk loop."""
         return self._exec(speculate=bool(flag))
 
+    def incremental(self, store_dir: str, *, segment_bytes: int = 0,
+                    dataset_uri: Optional[str] = None,
+                    max_history: int = 0) -> "Pipeline":
+        """Incremental assessment against the persistent segment store at
+        ``store_dir`` (``repro_torch.store``): the dataset is split into
+        content-defined segments, unchanged segments are served from their
+        frozen partial states, and only new/changed segments are rescanned
+        (through the configured backend's kernels; ``.pipelined()``
+        applies). Results are bit-identical — HLL registers included — to
+        a cold assessment of the same bytes, and every run appends a
+        timestamped snapshot to the store's quality history.
+        ``segment_bytes`` tunes the target segment size (0 =
+        ``repro_torch.store.DEFAULT_TARGET_BYTES``); ``dataset_uri``
+        labels history snapshots and DQV reports (None = default urn);
+        ``max_history > 0`` bounds the store's ``history.jsonl`` to the
+        newest that many snapshots (oldest dropped atomically). The store
+        is the JAX package's format: either package reuses the other's."""
+        return self._exec(store_dir=os.fspath(store_dir),
+                          segment_bytes=int(segment_bytes),
+                          dataset_uri=dataset_uri,
+                          max_history=int(max_history))
+
     def single_shot(self) -> "Pipeline":
-        """The whole dataset as one chunk: drops chunking, streaming and
-        checkpointing."""
-        return self._exec(chunks=0, checkpoint_dir=None, stream_triples=0)
+        """The whole dataset as one chunk: drops chunking, streaming,
+        checkpointing and the segment store."""
+        return self._exec(chunks=0, checkpoint_dir=None, stream_triples=0,
+                          store_dir=None)
 
     def with_exec(self, cfg: ExecutionConfig) -> "Pipeline":
         return dataclasses.replace(self, exec=cfg)
@@ -212,7 +249,10 @@ class Pipeline:
 
     def run(self, dataset: Dataset) -> AssessmentResult:
         """Ingest ``dataset`` and execute; chunked/streaming runs attach a
-        ``dist.ChunkStats`` on ``result.exec_stats``."""
+        ``dist.ChunkStats`` on ``result.exec_stats``; so do incremental
+        runs, with the store's reuse accounting."""
+        if self.exec.store_dir:
+            return self._run_incremental(dataset)
         data = self.ingest(dataset)
         if isinstance(data, TripleTensor) and not self.exec.chunks:
             return run_single_shot(self.evaluator(), data)
@@ -229,6 +269,64 @@ class Pipeline:
                               checkpoint_every=self.exec.checkpoint_every,
                               prefetch=self.exec.prefetch,
                               speculate=self.exec.speculate)
+
+    # -- incremental (segment store) -------------------------------------------
+    def _segments(self, dataset: Dataset):
+        """Ordered raw byte segments of ``dataset`` for the incremental
+        planner: paths/text/bytes are CDC-segmented
+        (``repro_torch.store.segmenter``) after gzip is sniffed and
+        decompressed; an iterable of N-Triples text/bytes chunks is an
+        *explicit* segmentation — each line-aligned chunk is one
+        segment."""
+        from .. import store as seg_store
+        tb = self.exec.segment_bytes or seg_store.DEFAULT_TARGET_BYTES
+        if isinstance(dataset, TripleTensor):
+            raise TypeError(
+                "incremental assessment diffs raw bytes against the "
+                "segment store; pass an N-Triples path, text, or an "
+                "iterable of text chunks, not an encoded TripleTensor")
+        if self._is_path(dataset):
+            def from_file():
+                # segmentation runs over the *decompressed* stream, so a
+                # dataset re-published as .nt.gz reuses every frozen
+                # segment of its raw twin
+                with rdf_ingest.open_nt(dataset) as f:
+                    yield from seg_store.iter_segments(f, tb)
+            return from_file()
+        if isinstance(dataset, (str, bytes)):
+            if isinstance(dataset, str):
+                if not self._looks_like_ntriples(dataset):
+                    raise FileNotFoundError(
+                        f"no such N-Triples file: {dataset!r}")
+                dataset = dataset.encode("utf-8")
+            else:
+                dataset = rdf_ingest.maybe_decompress(dataset)
+            return seg_store.iter_segments_bytes(dataset, tb)
+        if hasattr(dataset, "__iter__"):
+            def from_chunks():
+                for item in dataset:
+                    if isinstance(item, str):
+                        item = item.encode("utf-8")
+                    if not isinstance(item, bytes):
+                        raise TypeError(
+                            "incremental chunk streams must yield "
+                            "N-Triples text/bytes, got "
+                            f"{type(item).__name__}")
+                    yield item
+            return from_chunks()
+        raise TypeError(
+            f"cannot ingest {type(dataset).__name__} as a dataset")
+
+    def _run_incremental(self, dataset: Dataset) -> AssessmentResult:
+        from ..store import assess_incremental
+        kw = {}
+        if self.exec.dataset_uri:
+            kw["dataset_uri"] = self.exec.dataset_uri
+        return assess_incremental(
+            self.evaluator(), self._segments(dataset), self.exec.store_dir,
+            base_namespaces=self.base_ns, prefetch=self.exec.prefetch,
+            speculate=self.exec.speculate,
+            max_history=self.exec.max_history, **kw)
 
     # -- ingest ----------------------------------------------------------------
     def _encode(self, text) -> TripleTensor:   # str | bytes (gzip ok)
@@ -293,9 +391,14 @@ class Pipeline:
     # -- introspection ---------------------------------------------------------
     def describe(self) -> str:
         e = self.exec
-        mode = f"chunked×{e.chunks}" if e.chunks else "single-shot"
-        if e.stream_triples:
-            mode += f" streamed@{e.stream_triples}"
+        if e.store_dir:
+            mode = f"incremental@{e.store_dir}"
+            if e.segment_bytes:
+                mode += f" seg={e.segment_bytes}B"
+        else:
+            mode = f"chunked×{e.chunks}" if e.chunks else "single-shot"
+            if e.stream_triples:
+                mode += f" streamed@{e.stream_triples}"
         if e.prefetch:
             mode += f" async×{e.prefetch}"
         elif e.speculate:
@@ -303,7 +406,7 @@ class Pipeline:
             # prefetch the pipelined executor runs and ignores it, so the
             # repr must not claim it (repr determines execution)
             mode += " speculative"
-        if e.checkpoint_dir:
+        if e.checkpoint_dir and not e.store_dir:
             mode += f" ckpt={e.checkpoint_dir}"
         return (f"qa.Pipeline[{len(self.metric_names)} metrics | "
                 f"{'fused' if e.fused else 'per-metric'} | {e.backend} | "
@@ -320,10 +423,15 @@ def pipeline() -> Pipeline:
 
 def assess(dataset: Dataset, *, metrics="all",
            exec: Optional[ExecutionConfig] = None,
-           base: Sequence[str] = (), **exec_overrides) -> AssessmentResult:
+           base: Sequence[str] = (), store: Optional[str] = None,
+           **exec_overrides) -> AssessmentResult:
     """One-call assessment: ``qa.assess(ds, metrics="paper",
-    device="cpu", chunks=8)``. Keyword overrides patch ``exec``."""
+    device="cpu", chunks=8)``. Keyword overrides patch ``exec``;
+    ``store=`` is shorthand for ``store_dir=`` (incremental mode against a
+    ``repro_torch.store`` segment store)."""
     cfg = exec if exec is not None else ExecutionConfig()
+    if store is not None:
+        exec_overrides.setdefault("store_dir", os.fspath(store))
     if exec_overrides:
         cfg = dataclasses.replace(cfg, **exec_overrides)
     p = pipeline().metrics(metrics).with_exec(cfg)
