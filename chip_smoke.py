@@ -65,6 +65,38 @@ Phases (one JSON line each, plus the last lines described below):
    own prints ``0 rescanned`` and the last phase's values. Last, a cold
    and a warm run on a fresh store under cProfile give the host seconds of
    each step of the incremental runner (not part of the main path).
+6. serve — an in-process ``repro_torch.serve`` daemon with its defaults
+   (``fused_scan`` on ``cuda``), ``metrics="all"`` and two workers, over a
+   store root under ``build/``: the phase-4 text registered as a watched
+   server-side source; while its cold job runs, three tenants
+   (``bsbm_ntriples(2,000, seed=i)``) uploaded over HTTP, so that both
+   workers launch on the card at once; then ~1% appended to the source
+   (the watcher's job must rescan at most 5% of the bytes) and one tenant
+   re-uploaded unchanged (0 segments rescanned, no launch). Every job is
+   held to the plain backend on the card; the DQV report, ``/metrics``
+   and ``/catalog/ranking`` are read back; ``fused_scan`` launches equal
+   the sum of the jobs' rescanned segments. Per job: the queue wait, the
+   incremental runner's wall time and, of it, the chunk evals.
+6b. serve-cli — ``python -m repro_torch.launch.assess --serve 0`` in a
+   process of its own: one upload held to the plain backend, then SIGTERM
+   and exit 0 after "clean shutdown". serve-chaos — the crash drill of
+   ``scripts/serve_smoke.py --chaos`` with port daemons on the card: three
+   uploads accepted, the daemon killed by the crash point after
+   journaling the second job's start, a restarted daemon completing every
+   accepted job (one after a transient failure), each held to the plain
+   backend; alerts, a dead webhook counted, DELETE, SIGTERM exit 0.
+7. catalog — the fleet of ``benchmarks/fig_catalog.py`` in full mode
+   (8 × ``bsbm_ntriples(2,000, seed=100 + i)``, 8,413,937 bytes, 65,536-byte
+   segments, 4 workers, ``metrics="all"``) served as a remote DCAT catalog
+   by ``repro_torch.fetch.FlakyOriginServer`` on this machine and crawled
+   by ``repro_torch.catalog``: cold (``fused_scan`` once per segment),
+   warm (nothing rescanned, replayed, launched or fetched: every fetch a
+   304) and after a ~2% rewrite of one dataset through ``twopass`` (only
+   it rescans: ``qap_count`` once and ``hll_fold`` twice per segment).
+   Every dataset of every crawl is held to the plain backend on the card,
+   values and registers; the cold crawl's busy share is its chunk evals
+   over its wall time. Then ``python -m repro_torch.launch.qa_catalog
+   rank`` in a process of its own prints the in-process ranking.
 
 Then one ``scan-kernels`` line: per compiled plan, the NVRTC compile
 time, ptxas' report (registers, shared memory, spills), the resident
@@ -83,11 +115,15 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -122,6 +158,7 @@ MAIN_P = 12                    # hll precision of the main path (default)
 BSBM_PRODUCTS = 200_000
 BASE = ("http://bsbm.example.org/",)
 BUILD = os.path.join(ROOT, "build")   # listed in .gitignore
+SRC_ENV = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
 # scan-fraction targets of benchmarks/fig_incremental.py
 SCAN_TARGETS = {"append_1pct": 0.05, "mutate_10pct": 0.15,
                 "delete_10pct": 0.15}
@@ -643,6 +680,7 @@ def phase_incremental(text: str, add, expect):
     work = tempfile.mkdtemp(prefix="chip_smoke_incremental_", dir=BUILD)
     path = os.path.join(work, "data.nt")
     store = os.path.join(work, "store")
+    cold = None
     try:
         pipe = qa.pipeline().metrics("all").base(*BASE).incremental(store)
         for label, data in incremental_phases(text.encode()):
@@ -662,6 +700,7 @@ def phase_incremental(text: str, add, expect):
             if label == "cold":
                 check(s.segments_reused == 0 and s.segments_rescanned
                       == s.chunks_total, "cold: every segment scanned")
+                cold = res
             if label == "warm":
                 check(s.segments_rescanned == 0 and s.bytes_rescanned == 0
                       and s.footprints_replayed == 0,
@@ -680,7 +719,7 @@ def phase_incremental(text: str, add, expect):
         cli = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.assess", "--nt", path,
              "--store", store, "--base", BASE[0]],
-            env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")},
+            env=SRC_ENV,
             capture_output=True, text=True, timeout=600)
         cli_s = time.perf_counter() - t
         check(cli.returncode == 0, f"the CLI exited {cli.returncode}: "
@@ -694,6 +733,7 @@ def phase_incremental(text: str, add, expect):
         profile_incremental(path, os.path.join(work, "profiled"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return cold
 
 
 # where an incremental run's host time goes: (label, module path suffix,
@@ -747,6 +787,536 @@ def profile_incremental(path: str, store: str) -> None:
         check(calls[name] > 0, f"incremental-profile: {suffix}::{fn} "
               f"({name}) was never called")
     emit({"phase": "incremental-profile", "profiler": "cProfile", **out})
+
+
+# -- 6. the service and 7. the catalog crawler -------------------------------
+
+SERVE_TENANTS = 3           # uploaded while the registered source's cold job
+#                             runs, so that both workers use the card at once
+FLEET = 8                   # benchmarks/fig_catalog.py, full mode
+FLEET_PRODUCTS = 2_000
+FLEET_SEGMENT_BYTES = 65_536
+FLEET_WORKERS = 4
+SERVE_BANNER = "# repro_torch.serve on http://"
+
+
+def http(port: int, method: str, path: str, body=None):
+    """(status, JSON or raw bytes) of one request to a daemon on this
+    machine; 4xx and 5xx return instead of raising."""
+    r = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                               method=method)
+    try:
+        with urllib.request.urlopen(r, timeout=120) as resp:
+            raw, status = resp.read(), resp.status
+            ctype = resp.headers.get("Content-Type", "")
+    except urllib.error.HTTPError as e:
+        raw, status = e.read(), e.code
+        ctype = e.headers.get("Content-Type", "")
+    return status, json.loads(raw) if ctype.startswith(
+        "application/json") else raw
+
+
+def wait_job(port: int, name: str, job_id: int, timeout: float = 600.0,
+             ok: bool = True) -> dict:
+    """Poll one job to its end; with ``ok`` it must have succeeded."""
+    deadline = time.time() + timeout
+    while True:
+        st, job = http(port, "GET", f"/datasets/{name}/jobs/{job_id}")
+        check(st == 200, f"job {name}/{job_id}: HTTP {st}")
+        if job["state"] in ("done", "failed"):
+            check(not ok or job["state"] == "done",
+                  f"job {name}/{job_id} failed: {job['error']}")
+            return job
+        check(time.time() < deadline,
+              f"job {name}/{job_id} still {job['state']} after {timeout}s")
+        time.sleep(0.05)
+
+
+def upload(port: int, name: str, data: bytes) -> int:
+    st, doc = http(port, "PUT", f"/datasets/{name}/data", body=data)
+    check(st == 202, f"upload to {name}: HTTP {st} {doc}")
+    return doc["job"]["id"]
+
+
+def same_job_values(job: dict, plain, label: str) -> None:
+    check(job["values"] == {k: float(v) for k, v in
+                            sorted(plain.values.items())},
+          f"{label}: values equal the plain backend's")
+    check(job["n_triples"] == plain.n_triples, f"{label}: n_triples equal")
+
+
+class RunnerStats:
+    """The ``ChunkStats`` of every incremental run while active, by store
+    directory: wraps ``repro_torch.store.assess_incremental``, which the
+    pipeline looks up at each run. The service keeps only a summary of a
+    job's stats; this keeps the seconds of its chunk evals too."""
+
+    def __enter__(self):
+        from repro_torch import store
+        self._store, self._orig = store, store.assess_incremental
+        self.runs: dict[str, list] = {}
+        lock = threading.Lock()
+
+        def wrapped(evaluator, segments, store_dir, **kw):
+            res = self._orig(evaluator, segments, store_dir, **kw)
+            with lock:
+                self.runs.setdefault(store_dir, []).append(res.exec_stats)
+            return res
+
+        store.assess_incremental = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self._store.assess_incremental = self._orig
+
+
+def job_breakdown(job: dict, stats) -> dict:
+    """Where a served job's time went: waiting in the queue, then the
+    incremental runner (its chunk evals: copy, launch, sync on the card;
+    the rest: segmentation, parse and encode, state loads and writes on
+    the host), then reports, history and alerts."""
+    evals = sum(stats.chunk_eval_seconds)
+    return {"dataset": job["dataset"], "trigger": job["trigger"],
+            "queue_wait_s": job["started_at"] - job["enqueued_at"],
+            "run_s": job["finished_at"] - job["started_at"],
+            "runner_wall_s": stats.wall_seconds, "chunk_eval_s": evals,
+            "host_runner_s": stats.wall_seconds - evals,
+            **{k: job["exec_stats"][k] for k in (
+                "segments_rescanned", "segments_reused", "bytes_rescanned",
+                "bytes_total")}}
+
+
+def dataset_jobs(port: int, name: str) -> list:
+    st, doc = http(port, "GET", f"/datasets/{name}/jobs")
+    check(st == 200, f"jobs of {name}: HTTP {st}")
+    return doc["jobs"]
+
+
+def phase_serve(text: str, cold, launches) -> None:
+    """Phase 6: an in-process daemon with the defaults (``fused_scan`` on
+    ``cuda``) and two workers: the BSBM text as a watched server-side
+    source, three tenants uploaded while its cold job runs, a ~1% append
+    to the source, an unchanged re-upload; every job held to the plain
+    backend on the card, ``fused_scan`` launched once per rescanned
+    segment over all jobs."""
+    from repro_torch.serve import QAServer, ServerConfig
+    work = tempfile.mkdtemp(prefix="chip_smoke_serve_", dir=BUILD)
+    source = os.path.join(work, "bsbm.nt")
+    data = text.encode()
+    with open(source, "wb") as f:
+        f.write(data)
+    tenants = {f"t{i}": bsbm_ntriples(FLEET_PRODUCTS, seed=i).encode()
+               for i in range(SERVE_TENANTS)}
+    plain = {n: qa.assess(d, metrics="all", backend="torch", base=BASE)
+             for n, d in tenants.items()}
+    srv = QAServer(ServerConfig(store_root=os.path.join(work, "root"),
+                                metrics="all", base=BASE, workers=2,
+                                poll_interval=0.2), port=0)
+    check((srv.config.backend, srv.config.device) == ("fused_scan", "cuda"),
+          "the service's defaults are the fused_scan kernel on the card")
+    try:
+        with RunnerStats() as runner:
+            srv.start()
+            torch.cuda.synchronize()
+            K.reset_launches()
+            t0 = time.perf_counter()
+            st, doc = http(srv.port, "PUT", "/datasets/bsbm", body=json.dumps(
+                {"source": source}).encode())
+            check(st == 201, f"register bsbm: HTTP {st} {doc}")
+            deadline = time.time() + 60
+            while not any(j["state"] == "running"
+                          for j in dataset_jobs(srv.port, "bsbm")):
+                check(time.time() < deadline, "the watcher never started "
+                      "the source's cold job")
+                time.sleep(0.02)
+            ids = {n: upload(srv.port, n, d) for n, d in tenants.items()}
+            check(dataset_jobs(srv.port, "bsbm")[0]["state"] == "running",
+                  "the tenants were uploaded while the cold job ran")
+            jobs = [wait_job(srv.port, n, i) for n, i in ids.items()]
+            cold_job = wait_job(srv.port, "bsbm",
+                                dataset_jobs(srv.port, "bsbm")[0]["id"])
+            cold_wall = time.perf_counter() - t0
+            same_job_values(cold_job, cold, "serve bsbm cold")
+            for job in jobs:
+                same_job_values(job, plain[job["dataset"]],
+                                f"serve {job['dataset']}")
+            overlap = [j["dataset"] for j in jobs
+                       if j["started_at"] < cold_job["finished_at"]]
+            check(overlap, "a tenant's job ran beside the cold job")
+            jobs.insert(0, cold_job)
+
+            # ~1% appended, as phase 5, by an atomic replace of the source
+            edited = data + bsbm_ntriples(max(1, BSBM_PRODUCTS // 100),
+                                          seed=4242).encode()
+            with open(source + ".tmp", "wb") as f:
+                f.write(edited)
+            t = time.perf_counter()
+            os.replace(source + ".tmp", source)
+            deadline = time.time() + 600
+            while len(dataset_jobs(srv.port, "bsbm")) < 2:
+                check(time.time() < deadline, "the watcher missed the edit")
+                time.sleep(0.02)
+            edit_job = wait_job(srv.port, "bsbm",
+                                dataset_jobs(srv.port, "bsbm")[1]["id"])
+            edit_wall = time.perf_counter() - t
+            same_job_values(edit_job, qa.assess(
+                edited, metrics="all", backend="torch", base=BASE),
+                "serve bsbm append")
+            es = edit_job["exec_stats"]
+            fraction = es["bytes_rescanned"] / es["bytes_total"]
+            check(es["bytes_total"] == len(edited), "append: bytes counted")
+            check(fraction <= SCAN_TARGETS["append_1pct"],
+                  f"serve append: rescanned {fraction:.1%} of the bytes")
+            jobs.append(edit_job)
+
+            # an unchanged re-upload: nothing rescanned, nothing launched
+            torch.cuda.synchronize()
+            before = dict(K.LAUNCHES)
+            again = wait_job(srv.port, "t0", upload(srv.port, "t0",
+                                                    tenants["t0"]))
+            torch.cuda.synchronize()
+            check(again["exec_stats"]["segments_rescanned"] == 0
+                  and dict(K.LAUNCHES) == before,
+                  "an unchanged re-upload rescans and launches nothing")
+            same_job_values(again, plain["t0"], "serve t0 re-upload")
+            jobs.append(again)
+            counts = dict(K.LAUNCHES)
+            wall = time.perf_counter() - t0
+
+        st, rep = http(srv.port, "GET", "/datasets/t1/report")
+        check(st == 200 and len(rep["measurements"]) == len(ALL_METRICS)
+              and rep["nTriples"] == plain["t1"].n_triples,
+              "the served DQV report has one measurement per metric")
+        st, prom = http(srv.port, "GET", "/metrics")
+        check(st == 200 and b'repro_assessments_total{dataset="bsbm",'
+              b'state="done"} 2' in prom, "/metrics counts the assessments")
+        st, ranking = http(srv.port, "GET", "/catalog/ranking")
+        check(st == 200 and [r["rank"] for r in ranking["ranking"]]
+              == [1, 2, 3, 4], "/catalog/ranking ranks the 4 tenants")
+    finally:
+        srv.close()
+        shutil.rmtree(work, ignore_errors=True)
+    segs = sum(j["exec_stats"]["segments_rescanned"] for j in jobs)
+    check(counts == {"qap_count": 0, "fused_scan": segs, "hll_fold": 0},
+          f"serve: launches {counts}, expected fused_scan {segs}")
+    for k in launches:
+        launches[k] += counts[k]
+    seen: dict[str, int] = {}
+    breakdown = []
+    for job in jobs:
+        stores = runner.runs[srv.registry.store_dir(job["dataset"])]
+        breakdown.append(job_breakdown(job, stores[seen.get(
+            job["dataset"], 0)]))
+        seen[job["dataset"]] = seen.get(job["dataset"], 0) + 1
+    emit({"phase": "serve", "workers": 2, "backend": "fused_scan",
+          "source_bytes": len(data), "tenant_bytes": [
+              len(d) for d in tenants.values()],
+          "launches": counts, "segments_rescanned": segs,
+          "wall_s": wall, "cold_phase_wall_s": cold_wall,
+          "append_wall_s": edit_wall, "append_scan_fraction": fraction,
+          "beside_cold_job": overlap, "jobs": breakdown,
+          "matches_plain": True})
+
+
+def start_daemon(argv: list, timeout: float = 300.0):
+    """A daemon in a process of its own: the process, its port from the
+    startup banner, and the list its standard error lines go to."""
+    proc = subprocess.Popen([sys.executable, *argv], env=SRC_ENV,
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    lines: list[str] = []
+    ready = threading.Event()
+
+    def read():
+        for line in proc.stderr:
+            lines.append(line)
+            if line.startswith(SERVE_BANNER):
+                ready.set()
+
+    threading.Thread(target=read, daemon=True).start()
+    if not ready.wait(timeout):
+        proc.kill()
+        check(False, f"no startup banner from {argv}: {''.join(lines)}")
+    head = next(ln for ln in lines if ln.startswith(SERVE_BANNER))
+    port = int(head[len(SERVE_BANNER):].split(" ", 1)[0].rsplit(":", 1)[1])
+    return proc, port, lines
+
+
+def phase_serve_cli() -> None:
+    """Phase 6b, part 1: ``python -m repro_torch.launch.assess --serve 0``
+    in a process of its own: one upload held to the plain backend, then
+    SIGTERM and a clean shutdown with exit code 0."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_serve_cli_", dir=BUILD)
+    data = bsbm_ntriples(FLEET_PRODUCTS, seed=SERVE_TENANTS).encode()
+    t = time.perf_counter()
+    proc, port, lines = start_daemon(
+        ["-m", "repro_torch.launch.assess", "--serve", "0", "--store-root",
+         os.path.join(work, "root"), "--base", BASE[0]])
+    try:
+        startup = time.perf_counter() - t
+        t = time.perf_counter()
+        job = wait_job(port, "cli", upload(port, "cli", data))
+        job_s = time.perf_counter() - t
+        same_job_values(job, qa.assess(data, metrics="all",
+                                       backend="torch", base=BASE),
+                        "serve-cli")
+        t = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        stop_s = time.perf_counter() - t
+        err = "".join(lines)
+        check(rc == 0 and "clean shutdown" in err,
+              f"serve-cli: exit {rc} after SIGTERM: {err[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "serve-cli", "startup_s": startup, "job_s": job_s,
+          "shutdown_s": stop_s, "banner": lines[0].strip(),
+          "segments_rescanned": job["exec_stats"]["segments_rescanned"],
+          "matches_plain": True})
+
+
+# the chaos drill's daemon (scripts/serve_smoke.py --chaos, on the card):
+# phase "crash" exits 17 right after journaling the second job's start,
+# phase "clean" replays the journal with dataset c2's first attempt failing
+CHAOS_DAEMON = """\
+import os, signal, sys
+root, portfile, phase = sys.argv[1:4]
+from repro_torch.serve import QAServer, ServerConfig, ServiceFaultInjector
+if phase == "crash":
+    faults = ServiceFaultInjector(slow_jobs={"c1": 1.0},
+                                  crash_after_journal={"start#2"},
+                                  fail_webhooks=-1)
+else:
+    faults = ServiceFaultInjector(fail_jobs={"c2": 1})
+srv = QAServer(ServerConfig(store_root=root, metrics="all",
+                            base=("http://bsbm.example.org/",), workers=1,
+                            watch=False, retry_base=0.05, webhook_retries=2,
+                            webhook_backoff=0.05),
+               port=0, faults=faults).start()
+signal.signal(signal.SIGTERM, lambda s, f: srv.request_stop())
+with open(portfile + ".tmp", "w") as f:
+    f.write(str(srv.port))
+os.replace(portfile + ".tmp", portfile)
+srv.wait()
+srv.close()
+print("# chaos daemon: clean shutdown", flush=True)
+"""
+
+
+def phase_serve_chaos() -> None:
+    """Phase 6b, part 2: the crash drill of ``scripts/serve_smoke.py
+    --chaos`` with port daemons on the card: three uploads accepted, the
+    daemon killed by the crash point after journaling the second job's
+    start, and a restarted daemon that completes every accepted job (one
+    of them after a transient failure), each held to the plain backend."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_chaos_", dir=BUILD)
+    root = os.path.join(work, "root")
+    portfile = os.path.join(work, "port")
+    data = {f"c{i}": bsbm_ntriples(120, seed=i).encode() for i in (1, 2, 3)}
+    procs = []
+
+    def spawn(phase):
+        if os.path.exists(portfile):
+            os.remove(portfile)
+        log = os.path.join(work, f"{phase}.log")
+        with open(log, "w") as f:
+            p = subprocess.Popen([sys.executable, "-c", CHAOS_DAEMON, root,
+                                  portfile, phase], env=SRC_ENV, stdout=f,
+                                 stderr=subprocess.STDOUT)
+        procs.append(p)
+        deadline = time.time() + 300
+        while not os.path.exists(portfile):
+            if p.poll() is not None:
+                with open(log) as f:
+                    check(False, f"chaos daemon ({phase}) died at "
+                          f"start-up: {f.read()[-2000:]}")
+            check(time.time() < deadline, "chaos daemon never came up")
+            time.sleep(0.05)
+        with open(portfile) as f:
+            return p, int(f.read())
+
+    t0 = time.perf_counter()
+    try:
+        p1, port = spawn("crash")
+        st, _ = http(port, "PUT", "/datasets/c1", body=json.dumps(
+            {"alerts": ["L1 >= 0"],
+             "webhook": "http://127.0.0.1:9/hook"}).encode())
+        check(st == 201, f"register c1: HTTP {st}")
+        ids = {n: upload(port, n, d) for n, d in data.items()}
+        rc = p1.wait(timeout=300)
+        check(rc == 17, f"the crash point exits 17, got {rc}")
+        crash_s = time.perf_counter() - t0
+
+        t = time.perf_counter()
+        p2, port = spawn("clean")
+        lost = []
+        for name in ("c2", "c3"):       # c1 finished before the crash
+            job = wait_job(port, name, ids[name], ok=False)
+            if job["state"] != "done":
+                lost.append((name, job["error"]))
+                continue
+            same_job_values(job, qa.assess(data[name], metrics="all",
+                                           backend="torch", base=BASE),
+                            f"chaos {name}")
+            if name == "c2":
+                check(job["attempts"] == 2, "c2 retried once")
+        check(not lost, f"jobs lost across the crash: {lost}")
+        st, rep = http(port, "GET", "/datasets/c1/report")
+        check(st == 200 and rep["measurements"], "c1's report survived")
+        st, doc = http(port, "POST", "/datasets/c1/assess")
+        check(st == 202, f"re-assess c1: HTTP {st}")
+        j1 = wait_job(port, "c1", doc["job"]["id"])
+        check(j1["alerts_fired"] >= 1, "c1's alert fired again")
+        same_job_values(j1, qa.assess(data["c1"], metrics="all",
+                                      backend="torch", base=BASE),
+                        "chaos c1")
+        st, prom = http(port, "GET", "/metrics")
+        for want in (b'repro_jobs_replayed_total{dataset="c2"} 1',
+                     b'repro_jobs_replayed_total{dataset="c3"} 1',
+                     b'repro_job_retries_total{dataset="c2"} 1',
+                     b'repro_webhook_failures_total{dataset="c1"} 1'):
+            check(want in prom, f"/metrics has {want!r}")
+        st, doc = http(port, "DELETE", "/datasets/c3")
+        check(st == 200 and doc["bytes_reclaimed"] > 0,
+              "DELETE reclaimed c3's store")
+        p2.send_signal(signal.SIGTERM)
+        rc = p2.wait(timeout=120)
+        check(rc == 0, f"the restarted daemon exits {rc} on SIGTERM")
+        replay_s = time.perf_counter() - t
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "serve-chaos", "accepted": len(ids), "lost": 0,
+          "replayed": 2, "crash_exit": 17, "crash_s": crash_s,
+          "replay_s": replay_s, "matches_plain": True})
+
+
+def phase_catalog(launches) -> None:
+    """Phase 7: the fleet of ``benchmarks/fig_catalog.py`` (full mode)
+    served as a remote DCAT catalog by the fetch plane's flaky origin on
+    this machine, crawled cold, warm and after a ~2% edit of one dataset
+    (that crawl through ``twopass``); every dataset in every crawl held
+    to the plain backend on the card, values and registers. Then the
+    ``qa_catalog rank`` CLI in a process of its own."""
+    from repro_torch import catalog
+    from repro_torch.fetch import FlakyOriginServer
+    work = tempfile.mkdtemp(prefix="chip_smoke_catalog_", dir=BUILD)
+    origin_dir = os.path.join(work, "origin")
+    root = os.path.join(work, "root")
+    os.makedirs(origin_dir)
+    entries = []
+    for i in range(FLEET):
+        name = f"ds{i:02d}"
+        with open(os.path.join(origin_dir, f"{name}.nt"), "wb") as f:
+            f.write(bsbm_ntriples(FLEET_PRODUCTS, seed=100 + i).encode())
+        entries.append({"title": name,
+                        "distribution": [{"downloadURL": f"{name}.nt"}]})
+    with open(os.path.join(origin_dir, "catalog.json"), "w") as f:
+        json.dump({"dataset": entries}, f)
+    fleet_bytes = sum(os.path.getsize(os.path.join(origin_dir, f"{e}.nt"))
+                      for e in (x["title"] for x in entries))
+
+    def crawl(label, url, backend):
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t = time.perf_counter()
+        summary = catalog.crawl_catalog(
+            url, root, metrics="all", backend=backend, base=BASE,
+            workers=FLEET_WORKERS, segment_bytes=FLEET_SEGMENT_BYTES,
+            keep_results=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = dict(K.LAUNCHES)
+        check(summary["n_failed"] == 0, f"catalog-{label}: "
+              f"{[d['error'] for d in summary['datasets']]}")
+        results = summary.pop("results")
+        for rec in summary["datasets"]:
+            same_result(results[rec["name"]], qa.assess(
+                rec["path"], metrics="all", backend="torch", base=BASE))
+        evals = sum(sum(r.exec_stats.chunk_eval_seconds)
+                    for r in results.values())
+        segs = summary["segments_rescanned"]
+        for k in launches:
+            launches[k] += counts[k]
+        emit({"phase": f"catalog-{label}", "backend": backend,
+              "datasets": FLEET, "fleet_bytes": fleet_bytes,
+              "workers": FLEET_WORKERS, "wall_s": wall,
+              "crawl_wall_s": summary["wall_seconds"],
+              "bytes_rescanned": summary["bytes_rescanned"],
+              "segments_rescanned": segs,
+              "segments_reused": summary["segments_reused"],
+              "footprints_replayed": sum(d["footprints_replayed"]
+                                         for d in summary["datasets"]),
+              "fetch": summary["fetch"], "launches": counts,
+              "chunk_eval_s": evals, "busy_share": evals / wall,
+              "dataset_wall_s": {d["name"]: d["wall_seconds"]
+                                 for d in summary["datasets"]},
+              "matches_plain": True})
+        return summary, counts
+
+    try:
+        with FlakyOriginServer(origin_dir) as origin:
+            url = origin.url_for("catalog.json")
+            cold, counts = crawl("cold", url, "fused_scan")
+            check(cold["bytes_total"] == fleet_bytes == cold[
+                "bytes_rescanned"] and cold["segments_reused"] == 0,
+                "cold: every dataset scanned")
+            check(counts == {"qap_count": 0, "hll_fold": 0,
+                             "fused_scan": cold["segments_rescanned"]},
+                  f"cold: launches {counts}")
+            warm, counts = crawl("warm", url, "fused_scan")
+            check(warm["bytes_rescanned"] == 0 and sum(
+                d["footprints_replayed"] for d in warm["datasets"]) == 0
+                and sum(counts.values()) == 0,
+                "warm: nothing rescanned, replayed or launched")
+            check(warm["fetch"]["not_modified"] == FLEET
+                  and warm["fetch"]["bytes_fetched"] == 0,
+                  "warm: every fetch a 304 with no bytes")
+
+            # a contiguous ~2% in-place rewrite of one dataset
+            edited = os.path.join(origin_dir, "ds01.nt")
+            with open(edited, "rb") as f:
+                data = f.read()
+            a = data.find(b"\n", int(len(data) * 0.4)) + 1
+            b = data.find(b"\n", a + int(len(data) * 0.02)) + 1
+            with open(edited, "wb") as f:
+                f.write(data[:a] + bsbm_ntriples(
+                    max(1, FLEET_PRODUCTS // 50), seed=999).encode()
+                    + data[b:])
+            edit, counts = crawl("edit_one", url, "twopass")
+            per = {d["name"]: d for d in edit["datasets"]}
+            segs = per["ds01"]["segments_rescanned"]
+            check(segs > 0 and all(d["bytes_rescanned"] == 0 for n, d in
+                                   per.items() if n != "ds01"),
+                  "edit_one: only the edited dataset rescans")
+            check(counts == {"qap_count": segs, "hll_fold": 2 * segs,
+                             "fused_scan": 0},
+                  f"edit_one: launches {counts}, {segs} segments")
+            check(edit["fetch"]["not_modified"] == FLEET - 1,
+                  "edit_one: the other datasets revalidate")
+        t = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.qa_catalog", "rank",
+             "--root", root], env=SRC_ENV, capture_output=True, text=True,
+            timeout=300)
+        cli_s = time.perf_counter() - t
+        check(cli.returncode == 0, f"qa_catalog rank exited "
+              f"{cli.returncode}: {cli.stderr[-2000:]}")
+        ranking = catalog.rank_catalog(root)
+        check(json.loads(cli.stdout) == ranking,
+              "qa_catalog rank prints the in-process ranking")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "catalog-rank-cli", "seconds": cli_s,
+          "ranked": [r["name"] for r in ranking["ranking"]],
+          "scan_fraction_edit_one": edit["bytes_rescanned"]
+          / edit["bytes_total"]})
 
 
 def main() -> int:
@@ -880,7 +1450,13 @@ def main() -> int:
           f"streamed in {streamed.exec_stats.chunks_total} chunks")
 
     # -- 5. incremental: the text through the segment store, edit by edit ---
-    phase_incremental(text, add, expect)
+    cold = phase_incremental(text, add, expect)
+
+    # -- 6. the service, its CLI and a crash drill; 7. the catalog crawler --
+    phase_serve(text, cold, launches)
+    phase_serve_cli()
+    phase_serve_chaos()
+    phase_catalog(launches)
 
     phase_scan_kernels(scan_kernel_labels(all_plan, paper_plan, cover_plan,
                                           limits))

@@ -22,6 +22,11 @@ written by ``python -m repro.launch.assess --store`` is reused as is):
   # live monitoring: re-assess whenever the file changes, append each
   # snapshot to qstore/history.jsonl and print per-metric deltas
   python -m repro_torch.launch.assess --nt data.nt --store qstore/ --watch
+
+The multi-tenant service (``repro_torch.serve``), the same as
+``python -m repro_torch.launch.qa_serve``:
+
+  python -m repro_torch.launch.assess --serve 8080 --store-root qroot/
 """
 from __future__ import annotations
 
@@ -69,8 +74,9 @@ def file_signature(path: str) -> tuple[int, int, int]:
     (tmp file + ``os.replace`` swaps the inode) that a coarse
     ``(getmtime, getsize)`` pair misses inside mtime granularity; taking
     everything from one ``stat`` also removes the race where the file is
-    replaced between separate mtime and size calls.  Raises ``OSError``
-    when the file is missing mid-poll.
+    replaced between separate mtime and size calls.  Shared by the
+    ``--watch`` poll loop here and the ``repro_torch.serve`` daemon's
+    dataset watcher.  Raises ``OSError`` when the file is missing mid-poll.
     """
     st = os.stat(path)
     return (st.st_mtime_ns, st.st_size, st.st_ino)
@@ -196,7 +202,35 @@ def main(argv=None):
     ap.add_argument("--watch-max", type=int, default=None, metavar="N",
                     help="stop --watch after N assessments (testing/CI)")
     ap.add_argument("--dqv", action="store_true", help="emit DQV JSON-LD")
+    ap.add_argument("--serve", type=int, default=None, metavar="PORT",
+                    help="run the multi-tenant assessment service daemon "
+                         "(repro_torch.serve) on PORT instead of a one-shot "
+                         "run; needs --store-root (equivalent to "
+                         "python -m repro_torch.launch.qa_serve)")
+    ap.add_argument("--store-root", default=None, metavar="DIR",
+                    help="dataset root for --serve: one segment-store "
+                         "directory per registered dataset under DIR")
     args = ap.parse_args(argv)
+
+    if args.serve is not None:
+        if not args.store_root:
+            ap.error("--serve needs --store-root (one store dir per "
+                     "dataset lives under it)")
+        from . import qa_serve
+        fwd = ["--port", str(args.serve), "--store-root", args.store_root,
+               "--metrics", args.metrics, "--backend", args.backend,
+               "--device", args.device]
+        for b in args.base:
+            fwd += ["--base", b]
+        if args.prefetch:
+            fwd += ["--prefetch", str(args.prefetch)]
+        if args.speculate:
+            fwd += ["--speculate"]
+        if args.segment_bytes:
+            fwd += ["--segment-bytes", str(args.segment_bytes)]
+        if args.watch_interval != 2.0:
+            fwd += ["--poll-interval", str(args.watch_interval)]
+        return qa_serve.main(fwd)
 
     if args.compact:
         if not args.store:

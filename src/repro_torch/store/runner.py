@@ -169,7 +169,12 @@ def assess_incremental(evaluator: QualityEvaluator,
     """
     t0 = time.perf_counter()
     ev = evaluator
-    torch.empty(0, device=ev.device)
+    try:
+        torch.empty(0, device=ev.device)
+    except (RuntimeError, AssertionError) as e:
+        # the service and the crawler record this text per job / dataset
+        raise RuntimeError(f"device {ev.device} is not available: "
+                           f"{e}") from e
     store = SegmentStore(store_dir,
                          engine_signature(ev, base_namespaces))
     d = TermDictionary(base_namespaces)

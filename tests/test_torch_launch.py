@@ -277,7 +277,7 @@ def test_dqv_and_synthetic_chunked_resume(tmp_path, nt_file):
     ([], "need --nt or --synthetic"),
     (["--backend", "jnp"], "invalid choice"),
     (["--mesh", "2"], "unrecognized arguments"),
-    (["--serve", "8080"], "unrecognized arguments"),
+    (["--serve", "8080"], "--serve needs --store-root"),
 ], ids=["store+synthetic", "store+chunks", "store+stream", "store+ckpt",
         "watch-no-store", "watch-no-nt", "compact-no-store", "no-input",
         "backend", "mesh", "serve"])
