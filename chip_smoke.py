@@ -48,6 +48,30 @@ Phases (one JSON line each, plus the last lines described below):
    and its least possible time on the card, and one library reduction
    over the same planes (``planes.amax()``) gives the read rate a library
    kernel reaches on the card.
+3b. mesh — the main path over a mesh of ranks (``launch.mesh``,
+   ``Pipeline.shard``): each rank copies its row shard to the card and
+   launches the kernels over it, counters and registers are all-reduced
+   over ``torch.distributed``. (1) A one-rank ``nccl`` group in this
+   process at 81,980,472 rows, ``metrics="all"`` (one ``fused_scan``)
+   and ``"paper"`` (one ``qap_count``), held to the single-shot runs
+   above; the group is destroyed after it. (2) Four ``gloo`` ranks
+   sharing the card, child processes started by ``launch_ranks``, at the
+   BSBM 2 GB count (8,289,484 rows: a cut for the script's time limit),
+   single shot (``all`` and ``paper``), ``.chunked(6).pipelined(2)``
+   (``exec_stats.devices == 4``) and ``twopass``: every rank's result
+   bit-identical to the plain backend on the card, and each kernel
+   launched once per rank per chunk. (3) The phase-4 text through the
+   segment store under a 2-rank mesh, cold and after a ~1% mutation,
+   equal to the single-device store runs with the same rescanned
+   segments, each rescanned segment scanned by one rank; the single-device
+   runner then reuses the mesh's store with 0 segments rescanned. (4)
+   ``python -m repro_torch.launch.assess --mesh 2 --synthetic 1000000``
+   in a process of its own prints the values of the run without
+   ``--mesh``. Per run: the group's backend, each rank's kernel
+   milliseconds (CUDA events, one rank at a time), the all-reduce (or,
+   for the store, all-gather) milliseconds, beside those of its
+   collectives alone, and the wall time, beside the card's name and power
+   limit.
 4. ingest — BSBM N-Triples text (``bsbm_ntriples(200_000, seed=7)``)
    through ``qa.assess`` and the DQV report, against the plain backend,
    and the same text streamed in chunks of 131,072 triples, against the
@@ -109,7 +133,9 @@ mismatch or exception exits nonzero before that line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -127,6 +153,7 @@ import urllib.request
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -144,7 +171,12 @@ from repro_torch.dist import ChunkScheduler, FaultInjector, WorkerFailure  # noq
 from repro_torch.kernels.fused_scan import ops as fops, ref as fref  # noqa
 from repro_torch.kernels.hll import ops as hops, ref as href  # noqa
 from repro_torch.kernels.qap_count import ops as qops, ref as qref  # noqa
+from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.rdf import bsbm_ntriples, synth_encoded  # noqa: E402
+from repro_torch.rdf import ingest as rdf_ingest  # noqa: E402
+from repro_torch.rdf.triple_tensor import TripleTensor  # noqa: E402
+from repro_torch.store import (DEFAULT_TARGET_BYTES,  # noqa: E402
+                               iter_segments_bytes)
 
 FULL_ROWS = 81_980_472         # triples of the paper's BSBM 20 GB dataset
 PER_METRIC_ROWS = 8_289_484    # triples of its BSBM 2 GB dataset
@@ -169,6 +201,11 @@ SCAN_TARGETS = {"append_1pct": 0.05, "mutate_10pct": 0.15,
 MEM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 FIRST_CALL_ROWS = 100_000
+MESH_RANKS = 4                 # gloo ranks sharing the card
+MESH_STORE_RANKS = 2
+MESH_CHUNKS = 6
+MESH_CLI_ROWS = 1_000_000
+MESH_TIMEOUT = 600.0           # seconds the ranks of one launch may take
 REPLACES = {
     "qap_count": "src/repro/kernels/qap_count/kernel.py:105",
     "fused_scan": "src/repro/kernels/fused_scan/kernel.py:114",
@@ -574,6 +611,27 @@ def run_main_path(label, run, plain, expect, **extra):
     return launches, res, wall
 
 
+def scan_launch(planes, pln, specs, p):
+    """The scan kernel of ``pln`` with ``specs``: its printed source, the
+    compiled kernel, and a function that launches it alone on ``planes``
+    (zeroing the outputs), without the wrapper's checks."""
+    src = scan_codegen.generate_cached(tuple(pln.program), pln.n_counters,
+                                       tuple(specs), p if specs else None)
+    kern = _build.spec_kernel(src)
+    counts = torch.zeros((pln.n_counters,), dtype=torch.int64,
+                         device=planes.device)
+    regs = torch.zeros((len(specs), 1 << p), dtype=torch.int32,
+                       device=planes.device) if specs else None
+
+    def launch():
+        counts.zero_()
+        if regs is not None:
+            regs.zero_()
+        kern.launch(planes, counts, regs)
+
+    return src, kern, launch
+
+
 def time_kernel(name, planes, pln, p):
     """Kernel and plain version, timed on the card at the main path's
     shape. For ``hll_fold`` ``pln`` is one sketch's ``(name, cols)``."""
@@ -599,20 +657,7 @@ def time_kernel(name, planes, pln, p):
         plain = lambda: fref.fused_scan_torch(planes, pln.program,
                                               pln.n_counters, specs, p)
     bound_ms, bound_by = bound(rows, pln.program, pln.n_counters, specs, p)
-    src = scan_codegen.generate_cached(tuple(pln.program), pln.n_counters,
-                                       tuple(specs), p if specs else None)
-    kern = _build.spec_kernel(src)
-    counts = torch.zeros((pln.n_counters,), dtype=torch.int64,
-                         device=planes.device)
-    regs = torch.zeros((len(specs), 1 << p), dtype=torch.int32,
-                       device=planes.device) if specs else None
-
-    def launch():   # the launch alone, without the wrapper's checks
-        counts.zero_()
-        if regs is not None:
-            regs.zero_()
-        kern.launch(planes, counts, regs)
-
+    src, kern, launch = scan_launch(planes, pln, specs, p)
     return {"ms": cuda_ms(kernel, 10), "plain_ms": cuda_ms(plain, 2),
             "launch_ms": cuda_ms(launch, 10),
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1319,6 +1364,364 @@ def phase_catalog(launches) -> None:
           / edit["bytes_total"]})
 
 
+# -- 3b. the mesh -------------------------------------------------------------
+
+def pack(res, launches=None, wall=None) -> dict:
+    """An assessment as a rank reports it, on one JSON line."""
+    s = res.exec_stats
+    out = {"counts": res.counts, "values": res.values,
+           "n_triples": res.n_triples, "passes": res.passes,
+           "registers": {k: v.tolist() for k, v in res.registers.items()},
+           "launches": launches, "wall_s": wall}
+    if s is not None:
+        out["stats"] = {k: getattr(s, k) for k in (
+            "devices", "mode", "chunks_total", "segments_reused",
+            "segments_rescanned", "bytes_rescanned", "bytes_total",
+            "footprints_replayed")}
+        out["stats"]["chunk_eval_seconds_sum"] = sum(s.chunk_eval_seconds)
+    return out
+
+
+def same_packed(got: dict, ref, label: str) -> None:
+    """Hold a rank's packed result to ``ref``: counters, registers, values
+    and ``n_triples`` equal."""
+    check(got["counts"] == ref.counts, f"{label}: counters equal")
+    check(set(got["registers"]) == set(ref.registers),
+          f"{label}: same sketches")
+    for k, v in ref.registers.items():
+        check(np.array_equal(np.asarray(got["registers"][k], np.int32), v),
+              f"{label}: register bank {k} equal")
+    check(got["values"] == ref.values, f"{label}: values equal")
+    check(got["n_triples"] == ref.n_triples, f"{label}: n_triples equal")
+
+
+def mesh_kernel_ms(label: str, planes) -> dict:
+    """Each kernel a run of ``label`` launches, timed (CUDA events, mean of
+    10 calls) on ``planes``, the rank's shard at the run's shape: through
+    its wrapper, and for the scan kernel also the launch alone."""
+    all_plan = plan(get_metrics(ALL_METRICS))
+    if label in ("paper", "nccl-paper"):
+        pln = plan(get_metrics(PAPER_METRICS))
+        return {"qap_count": cuda_ms(lambda: qops.fused_count(
+                    planes, pln.program, pln.n_counters), 10),
+                "qap_count_launch": cuda_ms(
+                    scan_launch(planes, pln, (), MAIN_P)[2], 10)}
+    if label == "twopass":
+        out = {"qap_count": cuda_ms(lambda: qops.fused_count(
+            planes, all_plan.program, all_plan.n_counters), 10)}
+        for name, cols in all_plan.sketch_specs:
+            out[f"hll_fold_{name}"] = cuda_ms(
+                lambda: hops.hll_fold(planes, cols, MAIN_P), 10)
+        return out
+    return {"fused_scan": cuda_ms(lambda: fops.fused_scan(
+                planes, all_plan.program, all_plan.n_counters,
+                all_plan.sketch_specs, MAIN_P), 10),
+            "fused_scan_launch": cuda_ms(scan_launch(
+                planes, all_plan, all_plan.sketch_specs, MAIN_P)[2], 10)}
+
+
+def mesh_reduce_ms(ev, planes, reps: int = 20) -> dict:
+    """Host milliseconds of one ``reduce_over_mesh`` of a pass's outputs
+    over ``planes`` (under ``gloo`` the copies of the outputs to the host
+    are part of it), and of its collectives alone on tensors of the same
+    sizes already where the backend takes them; each after a barrier."""
+    outs = ev.dispatch_chunk(planes)
+    counts, regs = [c for c, _ in outs], {}
+    for _, r in outs:
+        regs.update(r)
+    torch.cuda.synchronize()
+
+    def per_call(fn) -> float:
+        ev.barrier()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / reps * 1e3
+
+    group = ev.mesh.get_group()
+    dev = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
+    flat = torch.zeros(sum(c.numel() for c in counts), dtype=torch.int64,
+                       device=dev)
+    bank = torch.zeros((len(regs), 1 << MAIN_P), dtype=torch.int32,
+                       device=dev)
+
+    def collectives():
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        if regs:
+            dist.all_reduce(bank, op=dist.ReduceOp.MAX, group=group)
+
+    return {"reduce_ms": per_call(lambda: ev.reduce_over_mesh(counts, regs)),
+            "collectives_ms": per_call(collectives)}
+
+
+def mesh_row_pipes(mesh) -> dict:
+    """The runs of the four-rank part: label -> pipeline."""
+    pipe = qa.pipeline().metrics("all").shard(mesh)
+    return {"single": pipe,
+            "paper": qa.pipeline().metrics("paper").shard(mesh),
+            "pipelined": pipe.chunked(MESH_CHUNKS).pipelined(2),
+            "twopass": pipe.backend("twopass")}
+
+
+def mesh_rank_run(run, ev) -> dict:
+    """One main-path run on this rank, launch counts zeroed just before
+    and read just after, after a barrier so the ranks start together."""
+    ev.barrier()
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return pack(res, dict(K.LAUNCHES), wall)
+
+
+def mesh_rank(spec: dict) -> int:
+    """One rank of a launch of ``phase_mesh`` (``chip_smoke.py --mesh-rank
+    SPEC``): the spec's runs, then this rank's kernel times (one rank at a
+    time) and collective times; prints one JSON line."""
+    mesh = mesh_mod.make_assessment_mesh(device="cuda")
+    try:
+        group = mesh.get_group()
+        rank, world = dist.get_rank(), dist.get_world_size()
+        out = {"rank": rank, "backend": dist.get_backend(group), "runs": {},
+               "kernel_ms": {}, "collective_ms": {}}
+        if spec["case"] == "rows":
+            tt = TripleTensor(np.load(spec["planes"], mmap_mode="c"),
+                              spec["n_valid"], spec["n_terms"])
+            pipes = mesh_row_pipes(mesh)
+            for label, pipe in pipes.items():
+                out["runs"][label] = mesh_rank_run(lambda: pipe.run(tt),
+                                                   pipe.evaluator())
+            shapes = {label: pipes[label].evaluator().device_planes(
+                tt.chunks(MESH_CHUNKS)[0] if label == "pipelined" else tt)
+                for label in pipes}
+            for r in range(world):          # one rank at a time on the card
+                dist.barrier(group)
+                if r == rank:
+                    out["kernel_ms"] = {label: mesh_kernel_ms(label, planes)
+                                        for label, planes in shapes.items()}
+            for label, planes in shapes.items():
+                out["collective_ms"][label] = mesh_reduce_ms(
+                    pipes[label].evaluator(), planes)
+            out["shard_rows"] = {k: v.shape[0] for k, v in shapes.items()}
+        else:
+            pipe = qa.pipeline().metrics("all").base(*BASE).shard(
+                mesh).incremental(spec["store"])
+            ev = pipe.evaluator()
+            for label in ("cold", "mutated"):
+                out["runs"][label] = mesh_rank_run(
+                    lambda: pipe.run(spec[label]), ev)
+            with open(spec["cold"], "rb") as f:
+                seg = next(iter_segments_bytes(f.read(),
+                                               DEFAULT_TARGET_BYTES))
+            # a whole segment, as eval_segment_batch hands it to a rank
+            planes = torch.from_numpy(rdf_ingest.parse_encode(
+                seg, base_namespaces=BASE).planes).cuda()
+            for r in range(world):
+                dist.barrier(group)
+                if r == rank:
+                    out["kernel_ms"]["segment"] = mesh_kernel_ms(
+                        "single", planes)
+            empty = [TripleTensor(np.zeros((0, planes.shape[1]), np.int32),
+                                  0)] * world
+            ev.barrier()
+            t = time.perf_counter()
+            for _ in range(20):
+                ev.eval_segment_batch(empty)
+            out["collective_ms"]["segment_batch"] = \
+                (time.perf_counter() - t) / 20 * 1e3
+            out["segment_rows"] = planes.shape[0]
+        print(json.dumps(out), flush=True)
+    finally:
+        mesh_mod.close_ranks()
+    return 0
+
+
+def launch_mesh(n: int, spec: dict) -> tuple[list, float]:
+    """``n`` ranks of ``mesh_rank`` on ``spec``; their JSON lines, and the
+    launch's wall seconds (process start-up included)."""
+    t = time.perf_counter()
+    results = mesh_mod.launch_ranks(
+        n, [os.path.abspath(__file__), "--mesh-rank", json.dumps(spec)],
+        timeout=MESH_TIMEOUT)
+    wall = time.perf_counter() - t
+    return [json.loads(r.stdout.strip().splitlines()[-1])
+            for r in results], wall
+
+
+def phase_mesh(tt, small, single, paper, launches, smi) -> None:
+    """Phase 3b: the main path over a mesh of ranks (module docstring)."""
+    t_phase = time.perf_counter()
+
+    def count(per_kernel: dict) -> None:
+        for k in launches:
+            launches[k] += per_kernel.get(k, 0)
+
+    # (1) one nccl rank in this process, at full size
+    mesh = mesh_mod.make_assessment_mesh(1, device="cuda")
+    try:
+        backend = dist.get_backend(mesh.get_group())
+        check(backend == "nccl", f"a one-rank group is {backend}")
+        for label, metrics, ref, kernel in (
+                ("nccl-all", "all", single, "fused_scan"),
+                ("nccl-paper", "paper", paper, "qap_count")):
+            pipe = qa.pipeline().metrics(metrics).shard(mesh)
+            got, res, wall = run_main_path(
+                f"mesh-{label}", lambda: pipe.run(tt), ref,
+                {k: int(k == kernel) for k in KERNELS},
+                backend=backend, ranks=1, card=smi)
+            count(got)
+            check(res.passes == ref.passes == 1, f"{label}: one pass")
+            ev = pipe.evaluator()
+            planes = ev.device_planes(tt)
+            emit({"phase": f"mesh-{label}-timing", "backend": backend,
+                  "ranks": 1, "rows": tt.n_rows, "card": smi,
+                  "rank_kernel_ms": [mesh_kernel_ms(label, planes)],
+                  "allreduce": [mesh_reduce_ms(ev, planes)],
+                  "wall_s": wall})
+            del planes
+            torch.cuda.empty_cache()
+    finally:
+        mesh_mod.close_ranks()
+    check(not dist.is_initialized(), "the one-rank group is destroyed")
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_", dir=BUILD)
+    try:
+        # (2) four gloo ranks sharing the card, at the BSBM 2 GB count
+        path = os.path.join(work, "planes.npy")
+        np.save(path, small.planes)
+        ref = {"single": qa.assess(small, metrics="all", backend="torch")}
+        ref["paper"] = qa.assess(small, metrics="paper", backend="torch")
+        ref["pipelined"] = ref["twopass"] = ref["single"]
+        expect = {"single": {"fused_scan": 1}, "paper": {"qap_count": 1},
+                  "pipelined": {"fused_scan": MESH_CHUNKS},
+                  "twopass": {"qap_count": 1, "hll_fold": 2}}
+        passes = {"single": 1, "paper": 1, "pipelined": MESH_CHUNKS,
+                  "twopass": 3}
+        outs, launch_wall = launch_mesh(MESH_RANKS, {
+            "case": "rows", "planes": path, "n_valid": small.n_valid,
+            "n_terms": small.n_terms})
+        for label in expect:
+            for o in outs:
+                got = o["runs"][label]
+                name = f"mesh-gloo{MESH_RANKS}-{label} rank {o['rank']}"
+                check(o["backend"] == "gloo", f"{name}: {o['backend']}")
+                same_packed(got, ref[label], name)
+                check(got["passes"] == passes[label],
+                      f"{name}: {got['passes']} passes")
+                want = {k: expect[label].get(k, 0) for k in KERNELS}
+                check(got["launches"] == want,
+                      f"{name}: launched {got['launches']}, expected {want}")
+                if label == "pipelined":
+                    check(got["stats"]["devices"] == MESH_RANKS
+                          and got["stats"]["chunks_total"] == MESH_CHUNKS,
+                          f"{name}: {got['stats']}")
+                count(got["launches"])
+            emit({"phase": f"mesh-gloo{MESH_RANKS}-{label}",
+                  "backend": "gloo", "ranks": MESH_RANKS,
+                  "rows": small.n_rows, "card": smi,
+                  "shard_rows": [o["shard_rows"][label] for o in outs],
+                  "launches_per_rank": outs[0]["runs"][label]["launches"],
+                  "passes": outs[0]["runs"][label]["passes"],
+                  "rank_kernel_ms": [o["kernel_ms"][label] for o in outs],
+                  "allreduce": [o["collective_ms"][label] for o in outs],
+                  "wall_s": [o["runs"][label]["wall_s"] for o in outs],
+                  "stats": outs[0]["runs"][label].get("stats"),
+                  "values": outs[0]["runs"][label]["values"],
+                  "matches_plain": True})
+        emit({"phase": f"mesh-gloo{MESH_RANKS}-launch",
+              "seconds": launch_wall, "card": smi})
+        os.remove(path)
+
+        # (3) the segment store under a 2-rank mesh: cold, ~1% mutated
+        text = bsbm_ntriples(BSBM_PRODUCTS, seed=7).encode()
+        a, b = _region(text, 0.25, 0.01)
+        mutated = (text[:a] + bsbm_ntriples(max(1, BSBM_PRODUCTS // 100),
+                                            seed=777).encode() + text[b:])
+        paths = {}
+        for label, data in (("cold", text), ("mutated", mutated)):
+            paths[label] = os.path.join(work, f"{label}.nt")
+            with open(paths[label], "wb") as f:
+                f.write(data)
+        one = qa.pipeline().metrics("all").base(*BASE).incremental(
+            os.path.join(work, "single"))
+        ref = {label: one.run(paths[label]) for label in paths}
+        mesh_store = os.path.join(work, "mesh")
+        outs, launch_wall = launch_mesh(MESH_STORE_RANKS, {
+            "case": "store", "store": mesh_store, **paths})
+        for label in paths:
+            s_ref = ref[label].exec_stats
+            scanned = 0
+            for o in outs:
+                got = o["runs"][label]
+                name = f"mesh-store-{label} rank {o['rank']}"
+                same_packed(got, ref[label], name)
+                st = got["stats"]
+                check(st["mode"] == "incremental+mesh"
+                      and st["devices"] == MESH_STORE_RANKS, f"{name}: {st}")
+                for k in ("segments_reused", "segments_rescanned",
+                          "bytes_rescanned", "footprints_replayed"):
+                    check(st[k] == getattr(s_ref, k),
+                          f"{name}: {k} {st[k]}, one device "
+                          f"{getattr(s_ref, k)}")
+                check(got["passes"] == ref[label].passes, f"{name}: passes")
+                scanned += got["launches"]["fused_scan"]
+                count(got["launches"])
+            check(scanned == s_ref.segments_rescanned,
+                  f"mesh-store-{label}: {scanned} launches over the ranks "
+                  f"for {s_ref.segments_rescanned} rescanned segments")
+            emit({"phase": f"mesh-store-{label}", "backend": "gloo",
+                  "ranks": MESH_STORE_RANKS, "card": smi,
+                  "segments_rescanned": s_ref.segments_rescanned,
+                  "segments_total": s_ref.chunks_total,
+                  "launches_per_rank": [o["runs"][label]["launches"]
+                                        ["fused_scan"] for o in outs],
+                  "wall_s": [o["runs"][label]["wall_s"] for o in outs],
+                  "one_device_wall_s": s_ref.wall_seconds,
+                  "chunk_eval_seconds_sum": [
+                      o["runs"][label]["stats"]["chunk_eval_seconds_sum"]
+                      for o in outs],
+                  "rank_kernel_ms": [o["kernel_ms"]["segment"]
+                                     for o in outs],
+                  "segment_rows": outs[0]["segment_rows"],
+                  "allgather_ms": [o["collective_ms"]["segment_batch"]
+                                   for o in outs],
+                  "matches_one_device": True})
+        emit({"phase": "mesh-store-launch", "seconds": launch_wall,
+              "card": smi})
+        got, res, _ = run_main_path(
+            "mesh-store-reused", lambda: one.incremental(mesh_store).run(
+                paths["mutated"]), ref["mutated"], {k: 0 for k in KERNELS})
+        count(got)
+        check(res.exec_stats.segments_rescanned == 0,
+              "one device reuses the mesh's store: 0 segments rescanned")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # (4) the CLI's --mesh, in a process of its own
+    from repro_torch.launch.assess import main as assess_main
+    t = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.assess", "--mesh",
+         str(MESH_STORE_RANKS), "--synthetic", str(MESH_CLI_ROWS)],
+        env=SRC_ENV, capture_output=True, text=True, timeout=MESH_TIMEOUT)
+    cli_s = time.perf_counter() - t
+    check(cli.returncode == 0,
+          f"the mesh CLI exited {cli.returncode}: {cli.stderr[-2000:]}")
+    want = io.StringIO()
+    with contextlib.redirect_stdout(want), \
+            contextlib.redirect_stderr(io.StringIO()):
+        assess_main(["--synthetic", str(MESH_CLI_ROWS)])
+    check(cli.stdout == want.getvalue(),
+          "the mesh CLI prints the values of the run without --mesh")
+    emit({"phase": "mesh-cli", "ranks": MESH_STORE_RANKS,
+          "rows": MESH_CLI_ROWS, "seconds": cli_s, "card": smi,
+          "stderr": cli.stderr.strip().splitlines()})
+    emit({"phase": "mesh", "seconds": time.perf_counter() - t_phase})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1366,7 +1769,7 @@ def main() -> int:
         plain.pop("all"), expect(qap_count=1, hll_fold=2)))
     check(twopass.passes == 3, f"twopass made {twopass.passes} passes, "
           f"expected 3")
-    add(run_main_path(
+    paper, _ = add(run_main_path(
         "assess-paper",
         lambda: qa.assess(tt, metrics="paper"),
         lambda: qa.assess(tt, metrics="paper", backend="torch"),
@@ -1407,6 +1810,9 @@ def main() -> int:
         expect(fused_scan=DRILL_CHUNKS)))
     check(res.exec_stats.resumed_from is not None,
           "the drill resumed from a checkpoint")
+
+    # -- 3b. the mesh: one nccl rank, four gloo ranks, the store, the CLI ---
+    phase_mesh(tt, small, single, paper, launches, smi)
 
     planes = torch.from_numpy(tt.planes).cuda()
     del tt, small
@@ -1485,4 +1891,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--mesh-rank":
+        sys.exit(mesh_rank(json.loads(sys.argv[2])))
     sys.exit(main())

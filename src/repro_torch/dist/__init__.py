@@ -19,6 +19,16 @@ properties for the torch engine:
 * ``FaultInjector`` / ``WorkerFailure`` — deterministic failure injection
   (flaky workers, stragglers, coordinator crashes) for tests and drills.
 
+Under a mesh (an evaluator built with ``mesh=``) every rank runs the same
+scheduler over the same dataset: each chunk's rows shard over the ranks,
+the evaluator reduces each chunk's counters and registers over the mesh,
+and every rank merges the same reduced state. Rank 0 alone writes
+checkpoints; every rank reads them on resume, after a barrier. The loop
+must make the same decisions on every rank, or the ranks' collectives
+stop matching and the run hangs: retries and injected faults are
+deterministic per chunk id, but speculation decides from each process's
+own timings, so ``speculate=True`` with a mesh raises ``ValueError``.
+
 Only ``WorkerFailure`` is retried. A CUDA error in a kernel surfaces as
 torch's ``RuntimeError`` when the chunk's results are copied to the host;
 it is not a worker failure, so it propagates and fails the run.
@@ -118,9 +128,7 @@ class ChunkStats:
     chunks_total: int
     attempts: int = 0            # eval attempts in THIS run (incl. retries)
     retries: int = 0
-    # mesh row shards per chunk (1 = no mesh); the port has no mesh yet,
-    # its first writer is the multi-GPU slice (ROADMAP §A6)
-    devices: int = 1
+    devices: int = 1             # mesh row shards per chunk (1 = no mesh)
     resumed_from: Optional[int] = None  # merge count at the restored ckpt
     checkpoints_written: int = 0
     mode: str = "sync"           # "sync" | "pipelined"
@@ -199,6 +207,13 @@ class ChunkScheduler:
         # story.  Applies to the sequential loop (the pipelined executor
         # already overlaps the next chunk's ingest against a straggler).
         self.speculate = speculate
+        if speculate and evaluator.mesh is not None:
+            raise ValueError(
+                "speculate=True cannot run under a mesh: each rank would "
+                "decide from its own timings whether to dispatch a backup "
+                "copy, and ranks that decide differently issue "
+                "mismatched collectives and hang; drop .speculative() or "
+                ".shard()")
         if speculate and prefetch:
             warnings.warn(
                 "speculate=True applies to the sequential chunk loop; the "
@@ -234,6 +249,9 @@ class ChunkScheduler:
     def _restore(self, state: dict) -> tuple[dict, Optional[int]]:
         if self._mgr is None:
             return state, None
+        # under a mesh, rank 0 may still be finishing the last run's
+        # checkpoint: every rank reads once all ranks are here
+        self.evaluator.barrier()
         step = self._mgr.latest_step()
         if step is None:
             return state, None
@@ -259,7 +277,10 @@ class ChunkScheduler:
     def _save(self, merges: int, state: dict) -> None:
         # async writer thread: the scan loop never blocks on disk (merges
         # REPLACE state arrays rather than mutating them, so the snapshot
-        # the writer holds stays consistent)
+        # the writer holds stays consistent). Under a mesh every rank holds
+        # the same state, and rank 0 writes it.
+        if not self.evaluator.is_writer():
+            return
         done = sorted(state["chunks_done"])
         self._mgr.save_async(
             merges,
@@ -290,7 +311,8 @@ class ChunkScheduler:
         state, resumed = self._restore(state)
         stats = ChunkStats(chunks_total=chunks_total, resumed_from=resumed,
                            mode="pipelined" if self.prefetch else "sync",
-                           passes_per_chunk=ev.passes_per_chunk)
+                           passes_per_chunk=ev.passes_per_chunk,
+                           devices=ev._shard_count())
 
         self._last_saved = len(state["chunks_done"])
         loop = self._run_pipelined if self.prefetch else self._run_sync

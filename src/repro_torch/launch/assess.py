@@ -27,6 +27,16 @@ The multi-tenant service (``repro_torch.serve``), the same as
 ``python -m repro_torch.launch.qa_serve``:
 
   python -m repro_torch.launch.assess --serve 8080 --store-root qroot/
+
+A mesh of N ranks (``launch.mesh``): the command starts N processes of
+itself, each scanning its row shard (or, with ``--store``, its share of
+the rescanned segments) through the kernels, with counters and registers
+reduced over ``torch.distributed``; rank 0 alone prints, writes ``--dqv``
+and writes the store, and the exit code is nonzero if any rank fails:
+
+  python -m repro_torch.launch.assess --nt data.nt --mesh 4
+  python -m repro_torch.launch.assess --synthetic 100000 --mesh 2 \\
+      --device cpu            # gloo ranks on the CPU
 """
 from __future__ import annotations
 
@@ -34,6 +44,12 @@ import argparse
 import os
 import sys
 import time
+
+# how long the ranks of a --mesh run may take in all: a rank that fails
+# ends the run at once, and a collective waits at most
+# launch.mesh.DEFAULT_TIMEOUT for its peers, so this only bounds a run
+# whose ranks all hang outside a collective
+MESH_DEADLINE = 24 * 3600.0
 
 
 def _print_result(res, t_ingest, t_eval, dqv=False, out=None, err=None):
@@ -177,6 +193,14 @@ def main(argv=None):
                          "chunk whose eval outlives the straggler "
                          "threshold gets a backup copy; first completion "
                          "wins (the merge is idempotent)")
+    ap.add_argument("--mesh", type=int, default=0, metavar="RANKS",
+                    help=">0: shard every scan's rows over this many ranks "
+                         "(1-D data-parallel mesh, one process a rank; "
+                         "counters sum- and HLL registers max-reduced "
+                         "over torch.distributed — bit-identical to the "
+                         "local run). nccl when every rank has a card of "
+                         "its own, else gloo; with cuda each rank takes "
+                         "its own card. 0 = no mesh")
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--store", default=None, metavar="DIR",
                     help="incremental assessment against the persistent "
@@ -212,6 +236,34 @@ def main(argv=None):
                          "directory per registered dataset under DIR")
     args = ap.parse_args(argv)
 
+    if args.mesh:
+        limit = os.cpu_count() or 1     # one process a rank
+        if not 1 <= args.mesh <= limit:
+            ap.error(f"--mesh: devices must be in [1, {limit}], got "
+                     f"{args.mesh}")
+        if args.serve is not None or args.compact or args.watch:
+            ap.error("--mesh applies to one-shot runs, not to --serve, "
+                     "--compact or --watch")
+        _check_run_flags(ap, args)
+        from . import mesh as mesh_mod
+        if mesh_mod.RDZV_ENV not in os.environ:
+            # the launching process: start the ranks, each running this
+            # same command; rank 0 prints to this process's streams
+            try:
+                mesh_mod.launch_ranks(
+                    args.mesh,
+                    ["-m", "repro_torch.launch.assess",
+                     *(sys.argv[1:] if argv is None else argv)],
+                    timeout=MESH_DEADLINE, inherit=(0,))
+            except mesh_mod.RankFailure as e:
+                print(f"# mesh run failed: {e}", file=sys.stderr)
+                return 1
+            return 0
+        try:
+            return _run(ap, args)
+        finally:
+            mesh_mod.close_ranks()
+
     if args.serve is not None:
         if not args.store_root:
             ap.error("--serve needs --store-root (one store dir per "
@@ -246,11 +298,43 @@ def main(argv=None):
               file=sys.stderr)
         return
 
+    _check_run_flags(ap, args)
+    return _run(ap, args)
+
+
+def _check_run_flags(ap, args) -> None:
+    """Reject flag combinations of an assessment run (before any rank
+    starts, under ``--mesh``)."""
+    if args.store and args.synthetic:
+        ap.error("--store diffs raw dataset bytes; use --nt, "
+                 "not --synthetic")
+    if args.store and (args.chunks or args.stream or args.checkpoint_dir):
+        ap.error("--store supersedes --chunks/--stream/--checkpoint-dir: "
+                 "segmentation replaces chunking, and the store itself is "
+                 "the persistence (frozen states double as in-run crash "
+                 "recovery)")
+    if args.watch and not (args.nt and args.store):
+        ap.error("--watch needs --nt and --store")
+    if not (args.watch or args.synthetic or args.nt):
+        ap.error("need --nt or --synthetic")
+
+
+def _run(ap, args):
+    """One assessment as the flags describe it; under ``--mesh`` this runs
+    on every rank, and only rank 0 prints."""
     from .. import qa
     from ..rdf import synth_encoded
 
     pipe = (qa.pipeline().metrics(args.metrics).backend(args.backend)
             .device(args.device))
+    speaks = True
+    if args.mesh:
+        import torch
+        from .mesh import make_assessment_mesh
+        kind = torch.device(args.device).type    # each rank takes its card
+        mesh = make_assessment_mesh(args.mesh, device=kind)
+        pipe = pipe.device(kind).shard(mesh)
+        speaks = mesh.get_local_rank() == 0
     if args.no_fused:
         pipe = pipe.per_metric()
     if args.chunks:
@@ -269,17 +353,7 @@ def main(argv=None):
     if args.base:
         pipe = pipe.base(*args.base)
 
-    if args.store and args.synthetic:
-        ap.error("--store diffs raw dataset bytes; use --nt, "
-                 "not --synthetic")
-    if args.store and (args.chunks or args.stream or args.checkpoint_dir):
-        ap.error("--store supersedes --chunks/--stream/--checkpoint-dir: "
-                 "segmentation replaces chunking, and the store itself is "
-                 "the persistence (frozen states double as in-run crash "
-                 "recovery)")
     if args.watch:
-        if not (args.nt and args.store):
-            ap.error("--watch needs --nt and --store")
         print(f"# {pipe.describe()}", file=sys.stderr)
         print(f"# watching {args.nt} every {args.watch_interval}s "
               f"(history: {os.path.join(args.store, 'history.jsonl')})",
@@ -294,18 +368,21 @@ def main(argv=None):
     t0 = time.time()
     if args.synthetic:
         source = synth_encoded(args.synthetic, seed=0)
-    elif args.nt:
-        source = args.nt if args.store else pipe.ingest(args.nt)
     else:
-        ap.error("need --nt or --synthetic")
+        source = args.nt if args.store else pipe.ingest(args.nt)
     t_ingest = time.time() - t0
 
-    print(f"# {pipe.describe()}", file=sys.stderr)
+    if speaks:
+        print(f"# {pipe.describe()}", file=sys.stderr)
     t0 = time.time()
     res = pipe.run(source)
     t_eval = time.time() - t0
-    _print_result(res, t_ingest, t_eval, dqv=args.dqv)
+    if speaks:
+        _print_result(res, t_ingest, t_eval, dqv=args.dqv)
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    rc = main()
+    if rc:                  # a failed mesh run
+        sys.exit(rc)

@@ -1,7 +1,8 @@
 """The ``repro_torch.qa`` pipeline — one front door for quality assessment.
 
 A ``Pipeline`` is an immutable description of *what* to measure (metric
-names) and *how* to execute (backend, fusion, HLL precision, device);
+names) and *how* to execute (backend, fusion, HLL precision, device,
+mesh);
 every fluent method returns a new pipeline, so partial configurations can
 be shared and specialized freely::
 
@@ -56,6 +57,7 @@ class ExecutionConfig:
     prefetch: int = 0                  # >0: async pipelined chunk executor
     speculate: bool = False            # straggler backup copies (sync loop)
     device: str = "cuda"
+    mesh: object = None                # DeviceMesh: rows split over ranks
     store_dir: Optional[str] = None    # segment store: incremental mode
     segment_bytes: int = 0             # target segment size (0 = default)
     max_history: int = 0               # >0: keep only the newest N
@@ -115,13 +117,47 @@ def _resolve_metrics(spec) -> tuple[str, ...]:
     return tuple(names)
 
 
+def mesh_structural_key(mesh) -> tuple | None:
+    """``(device type, mesh shape, dim names, ranks)`` — equal iff two
+    meshes run the same SPMD program on the same ranks. None for None
+    (the single-device case)."""
+    if mesh is None:
+        return None
+    return (mesh.device_type, tuple(mesh.mesh.shape),
+            tuple(mesh.mesh_dim_names or ()),
+            tuple(mesh.mesh.flatten().tolist()))
+
+
+class _MeshKey:
+    """Hashable cache identity for a mesh: STRUCTURAL, not object
+    identity. Callers rebuild a structurally identical mesh per call (a
+    service per job, a benchmark per rung); keying the engine cache on the
+    ``DeviceMesh`` object would miss on every rebuild and build a new
+    engine, whose plans compile anew. The first mesh seen for a structure
+    is the one the cached engine keeps using."""
+
+    __slots__ = ("mesh", "key")
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.key = mesh_structural_key(mesh)
+
+    def __hash__(self):
+        return hash(self.key)
+
+    def __eq__(self, other):
+        return isinstance(other, _MeshKey) and self.key == other.key
+
+
 @functools.lru_cache(maxsize=16)
 def _evaluator_for(metrics_key: tuple, backend: str, fused: bool,
-                   hll_p: int, device: str) -> QualityEvaluator:
+                   hll_p: int, device: str,
+                   mesh_key: _MeshKey) -> QualityEvaluator:
     # keyed on the Metric OBJECTS (not names), so re-registering a name
     # yields a fresh engine rather than a stale cached plan
     return QualityEvaluator([m.name for m in metrics_key], fused=fused,
-                            backend=backend, hll_p=hll_p, device=device)
+                            backend=backend, hll_p=hll_p, device=device,
+                            mesh=mesh_key.mesh)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,6 +199,14 @@ class Pipeline:
         """Where the planes live and the scan runs (``"cuda"``,
         ``"cuda:1"``, ``"cpu"``)."""
         return self._exec(device=str(device))
+
+    def shard(self, mesh) -> "Pipeline":
+        """Shard rows over ``mesh`` (pure data parallelism): a 1-D
+        ``DeviceMesh`` from ``launch.mesh.make_assessment_mesh``, whose
+        device type is the pipeline's device's. Every rank of the mesh
+        runs the same pipeline on the same dataset; ``None`` drops the
+        mesh."""
+        return self._exec(mesh=mesh)
 
     def chunked(self, n_chunks: int, *, checkpoint_dir: Optional[str] = None,
                 checkpoint_every: int = 8) -> "Pipeline":
@@ -245,7 +289,7 @@ class Pipeline:
         metrics_key = tuple(REGISTRY[n] for n in self.metric_names)
         e = self.exec
         return _evaluator_for(metrics_key, e.backend, e.fused, e.hll_p,
-                              e.device)
+                              e.device, _MeshKey(e.mesh))
 
     def run(self, dataset: Dataset) -> AssessmentResult:
         """Ingest ``dataset`` and execute; chunked/streaming runs attach a
@@ -408,9 +452,11 @@ class Pipeline:
             mode += " speculative"
         if e.checkpoint_dir and not e.store_dir:
             mode += f" ckpt={e.checkpoint_dir}"
+        mesh = (f" mesh={tuple(e.mesh.mesh_dim_names)}x{e.mesh.size()}"
+                if e.mesh is not None else "")
         return (f"qa.Pipeline[{len(self.metric_names)} metrics | "
                 f"{'fused' if e.fused else 'per-metric'} | {e.backend} | "
-                f"hll_p={e.hll_p} | {mode} | {e.device}]")
+                f"hll_p={e.hll_p} | {mode}{mesh} | {e.device}]")
 
     __repr__ = describe
 

@@ -36,6 +36,19 @@ with sketches, one ``qap_count`` for one without, ``qap_count`` plus one
 ``prefetch`` pipelining; the ``on_chunk`` hook freezes each newly
 evaluated segment's state into the store as it merges.
 
+Mesh scale-out: segments are *independent* (each frozen state is a pure
+function of its own bytes), so when the evaluator carries a mesh the
+rescan set is embarrassingly parallel. Every rank walks the same
+segments; rescanned ones are evaluated in batches of one segment a rank
+through ``QualityEvaluator.eval_segment_batch`` (per-segment results come
+back unreduced, so each state is frozen exactly as in the sequential
+path). The batched executor replaces the chunk scheduler for those
+rescans, so ``prefetch``/``speculate`` do not apply under a mesh. Rank 0
+alone writes the store (states, manifest, history); a barrier after each
+batch lets every rank read the store as rank 0 left it, and barriers
+before and after the commit keep any rank from reading a half-written
+store.
+
 What this port leaves out of the JAX package's runner
 -----------------------------------------------------
 * Segments are not padded to power-of-two row buckets.  The JAX runner
@@ -46,8 +59,6 @@ What this port leaves out of the JAX package's runner
   host copy of up to twice each segment.  Zero rows are invisible to
   counters and sketches, so padded and unpadded segments give the same
   state either way.
-* There is no mesh branch (batched segment rescans across devices): the
-  port's evaluator runs on one card.
 
 The store's on-disk format (``store.py``) and the engine signature are
 the JAX package's, byte for byte: a store written by either package is
@@ -57,6 +68,7 @@ from __future__ import annotations
 
 import hashlib
 import time
+import warnings
 from typing import Iterable, Sequence
 
 import numpy as np
@@ -64,7 +76,7 @@ import torch
 
 from ..core import report
 from ..core.evaluator import AssessmentResult, QualityEvaluator
-from ..dist import ChunkScheduler
+from ..dist import ChunkScheduler, ChunkStats
 from ..rdf import TermDictionary
 from ..rdf import ingest as rdf_ingest
 from ..rdf.triple_tensor import (COL_O, COL_P, COL_S,
@@ -256,20 +268,53 @@ def assess_incremental(evaluator: QualityEvaluator,
 
     def on_chunk(cid: int, counts, regs) -> None:
         m = rescan_meta.pop(cid)
-        store.put_state(SegmentState(
-            fingerprint=m["fp"], n_bytes=m["n_bytes"],
-            n_triples=m["n_triples"],
-            counts=[np.asarray(c, np.int64) for c in counts],
-            regs={k: np.asarray(v, np.int32) for k, v in regs.items()},
-            keys=m["keys"], flags=m["flags"], lengths=m["lengths"],
-            datatypes=m["datatypes"], ids=m["ids"]))
+        if ev.is_writer():
+            store.put_state(SegmentState(
+                fingerprint=m["fp"], n_bytes=m["n_bytes"],
+                n_triples=m["n_triples"],
+                counts=[np.asarray(c, np.int64) for c in counts],
+                regs={k: np.asarray(v, np.int32) for k, v in regs.items()},
+                keys=m["keys"], flags=m["flags"], lengths=m["lengths"],
+                datatypes=m["datatypes"], ids=m["ids"]))
         ev.merge_chunk(state, ("rescanned", cid), counts, regs)
         rescanned[0] += 1
 
-    sched = ChunkScheduler(ev, prefetch=prefetch, speculate=speculate,
-                           on_chunk=on_chunk)
-    _, stats = sched.run(produce())
-    stats.mode = "incremental" + ("+pipelined" if prefetch else "")
+    if ev.mesh is not None:
+        if prefetch or speculate:
+            warnings.warn(
+                "prefetch/speculate are ignored for mesh rescans: the "
+                "batched segment executor replaces the chunk scheduler",
+                RuntimeWarning, stacklevel=2)
+        stats = ChunkStats(chunks_total=0, mode="incremental+mesh",
+                           passes_per_chunk=ev.passes_per_chunk,
+                           devices=ev._shard_count())
+        batch: list = []            # [(cid, tensor)]
+
+        def flush() -> None:
+            if not batch:
+                return
+            t_eval = time.perf_counter()
+            outs = ev.eval_segment_batch([tt for _, tt in batch])
+            stats.chunk_eval_seconds.append(time.perf_counter() - t_eval)
+            stats.attempts += len(batch)
+            for (cid, _), (counts, regs) in zip(batch, outs):
+                on_chunk(cid, counts, regs)
+            batch.clear()
+            # rank 0 has frozen the batch: every rank walks on over the
+            # store as it now stands, so a later duplicate of one of these
+            # segments is reused on every rank alike
+            ev.barrier()
+
+        for cid, tt in enumerate(produce()):
+            batch.append((cid, tt))
+            if len(batch) >= ev._shard_count():
+                flush()
+        flush()
+    else:
+        sched = ChunkScheduler(ev, prefetch=prefetch, speculate=speculate,
+                               on_chunk=on_chunk)
+        _, stats = sched.run(produce())
+        stats.mode = "incremental" + ("+pipelined" if prefetch else "")
 
     for i, st in enumerate(reused):
         ev.merge_chunk(state, ("reused", i), st.counts, st.regs)
@@ -287,7 +332,10 @@ def assess_incremental(evaluator: QualityEvaluator,
     stats.wall_seconds = time.perf_counter() - t0
     result.exec_stats = stats
 
-    store.commit(order)
-    store.append_history(report.history_entry(
-        result, dataset_uri=dataset_uri), max_history=max_history)
+    ev.barrier()        # every rank is done reading the store
+    if ev.is_writer():
+        store.commit(order)
+        store.append_history(report.history_entry(
+            result, dataset_uri=dataset_uri), max_history=max_history)
+    ev.barrier()        # no rank reads a half-written store after this
     return result

@@ -276,7 +276,7 @@ def test_dqv_and_synthetic_chunked_resume(tmp_path, nt_file):
     (["--compact"], "--compact needs --store"),
     ([], "need --nt or --synthetic"),
     (["--backend", "jnp"], "invalid choice"),
-    (["--mesh", "2"], "unrecognized arguments"),
+    (["--mesh", "2"], "need --nt or --synthetic"),   # checked before ranks
     (["--serve", "8080"], "--serve needs --store-root"),
 ], ids=["store+synthetic", "store+chunks", "store+stream", "store+ckpt",
         "watch-no-store", "watch-no-nt", "compact-no-store", "no-input",
