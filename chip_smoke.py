@@ -122,6 +122,43 @@ Phases (one JSON line each, plus the last lines described below):
    over its wall time. Then ``python -m repro_torch.launch.qa_catalog
    rank`` in a process of its own prints the in-process ranking.
 
+8. models-lm-<arch> — the model-serving path of ``repro_torch.models``
+   (no scan kernel: plain torch) for each of the five LM configs at its
+   published widths, with seeded random weights (``torch.Generator``,
+   the JAX package's init, the q/k/v projections rescaled to fan-in
+   scale: ``fan_in_qkv`` says why, and ``--lm-init-witness`` below
+   measures it):
+   (a) the config in float32 at a depth cut (``LM_CUT``: 2 layers; gemma
+   one 5:1 super-block of 6; deepseek its dense layer and one MoE layer),
+   ``prefill`` (logits and caches) and three ``decode_step``s on the card
+   held to the same code on the CPU with the same weights (``F32_TOL`` of
+   each tensor's largest magnitude), then served on the card, each step's
+   logits held to a ``prefill(..., logits_last_only=False)`` of the
+   served sequence (relative L2 ``F32_TOL``); (b) ``launch.serve.serve_lm``
+   in the config's own dtype (bf16), Qwen2.5-14B at all 48 layers (31.55
+   GB of weights) and granite at all 24, the others at the cut: three
+   greedy requests of a 16-token prompt and 32 tokens, each step held to
+   a prefill of the served sequence (relative L2 ``BF16_REL_L2``). A MoE
+   config is held at a capacity of E/top_k slots an expert, which drops
+   nothing in either pass (its agreement at its own capacity, whose
+   drops differ between a 1-token and a whole-sequence pass, is
+   reported), with its routes recorded in both: the steps before the
+   first token routed to other experts one by one, and the median step. Per
+   config: resident bytes, init seconds, prefill ms, decode ms per token
+   (p50, p99 over the requests after the first) beside the byte bound
+   (weight bytes over 3.35 TB/s), and three decode steps under
+   ``torch.profiler``: the card's busy share and kernels a step.
+9. models-din — DIN at its full 10M-item table (180,232,842 parameters)
+   through ``serve_din``: ``serve_p99`` (512 × 1) and ``serve_bulk``
+   (262,144 × 1) batches, and ``retrieval_cand`` cut to 250,000
+   candidates (the attention unit holds (B, C, T, 144) float32, 57.6 GB
+   at 1,000,000); p50 and p99 per shape beside the float32 operation
+   bound. The ``serve_p99`` scores are held to the CPU with the same
+   weights (float32, ``atol=1e-5, rtol=1e-4``), and four candidates of a
+   retrieval batch to scoring each alone.
+   Both phases run after the card's memory from earlier phases is freed,
+   and launch no scan kernel.
+
 Then one ``scan-kernels`` line: per compiled plan, the NVRTC compile
 time, ptxas' report (registers, shared memory, spills), the resident
 blocks per SM, and the process's and disk cache's hits; for the ``all``
@@ -130,11 +167,18 @@ instructions (``cuobjdump -sass``). Then one
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power limit
 line, and as the last line ``{"ok": true, "device": {...}}``. Any
 mismatch or exception exits nonzero before that line.
+
+``python3 chip_smoke.py --lm-init-witness`` runs none of that: it serves
+Qwen2.5-14B at all 48 layers in float32 and in bf16, with the JAX init's
+weights as drawn and at fan-in scale, and prints for each the first
+layer's attention score statistics and the decode steps' agreement with
+a prefill of the served sequence (the measurement behind ``fan_in_qkv``).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -171,7 +215,14 @@ from repro_torch.dist import ChunkScheduler, FaultInjector, WorkerFailure  # noq
 from repro_torch.kernels.fused_scan import ops as fops, ref as fref  # noqa
 from repro_torch.kernels.hll import ops as hops, ref as href  # noqa
 from repro_torch.kernels.qap_count import ops as qops, ref as qref  # noqa
+from repro_torch.configs import LM_ARCHS, DIN_SHAPES, din_cfg  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
+from repro_torch.launch import serve as serve_mod  # noqa: E402
+from repro_torch.models import din as din_mod  # noqa: E402
+from repro_torch.models import transformer as tf_mod  # noqa: E402
+from repro_torch.models.common import (ParamTree, apply_rope,  # noqa: E402
+                                       rmsnorm, rope_freqs)
+from repro_torch.models.convert import tree_leaves  # noqa: E402
 from repro_torch.rdf import bsbm_ntriples, synth_encoded  # noqa: E402
 from repro_torch.rdf import ingest as rdf_ingest  # noqa: E402
 from repro_torch.rdf.triple_tensor import TripleTensor  # noqa: E402
@@ -206,6 +257,35 @@ MESH_STORE_RANKS = 2
 MESH_CHUNKS = 6
 MESH_CLI_ROWS = 1_000_000
 MESH_TIMEOUT = 600.0           # seconds the ranks of one launch may take
+# phases 8-9, the model-serving path. Depth cut of the float32 check (and
+# of the bf16 serve but for LM_SERVE_ALL_LAYERS): one whole period of each
+# layer pattern (gemma: one 5:1 super-block; deepseek: its dense layer and
+# one MoE layer)
+LM_CUT = {"qwen2.5-14b": 2, "internlm2-20b": 2, "gemma3-12b": 6,
+          "deepseek-v2-236b": 2, "granite-moe-1b-a400m": 2}
+LM_SERVE_ALL_LAYERS = ("qwen2.5-14b", "granite-moe-1b-a400m")
+LM_PROMPT = 16                 # serve_lm's prompt length
+LM_TOKENS = 32
+LM_REQUESTS = 3                # greedy requests a config; the first warms up
+LM_CHECK_STEPS = 3
+MODEL_SEED = 0
+# float32, the card against the CPU with the same weights: their matmuls
+# add up to 16,384 products a dot in other orders (about 1e-6 of the
+# magnitude each) through 2-6 layers; bf16's 2^-9 would fail it
+# (F32_TOL of the compared tensor's largest magnitude); float32 decode
+# against a prefill of the same sequence on the card: relative L2 F32_TOL
+F32_TOL = 1e-4
+# bf16 decode against a bf16 prefill of the same sequence: other matmul
+# shapes round differently, 8 mantissa bits through up to 48 layers
+# (relative L2 error of a step's logits); a MoE config is held at a
+# capacity that drops nothing (see lm_serve)
+BF16_REL_L2 = 5e-2
+LM_PROFILE_STEPS = 3           # decode steps under torch.profiler
+DIN_REQUESTS = {"serve_p99": 20, "serve_bulk": 5, "retrieval_cand": 3}
+# retrieval_cand cut from 1,000,000 candidates: the attention unit holds
+# (B, C, T, 144) float32, 57.6 GB at 10^6, and as much again in its parts
+DIN_RETRIEVAL_CANDS = 250_000
+F32_FLOPS_PER_S = 67e12        # float32 outside the tensor cores (SXM)
 REPLACES = {
     "qap_count": "src/repro/kernels/qap_count/kernel.py:105",
     "fused_scan": "src/repro/kernels/fused_scan/kernel.py:114",
@@ -1722,6 +1802,445 @@ def phase_mesh(tt, small, single, paper, launches, smi) -> None:
     emit({"phase": "mesh", "seconds": time.perf_counter() - t_phase})
 
 
+# -- 8-9. the model-serving path ------------------------------------------
+
+def _free() -> None:
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    want = want.float().cpu()
+    got = got.float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def rel_l2(got, want) -> float:
+    want = want.float().cpu()
+    return float((got.float().cpu() - want).norm()
+                 / want.norm().clamp_min(1e-30))
+
+
+def weight_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def fan_in_qkv(model) -> None:
+    """Rescale the q/k/v projections of JAX-init weights to fan-in scale,
+    in place. The JAX init scales them by 1/sqrt(heads) (``_dense_init``
+    reads ``shape[-2]``, the head count), so at Qwen2.5-14B's widths q and
+    k entries are about sqrt(d/H) and sqrt(d/Hkv) and the attention scores
+    have a standard deviation of d/sqrt(H·Hkv) = 185: every softmax is one
+    key, rounding flips which key, and the network amplifies it layer by
+    layer (``--lm-init-witness`` measures it). Scaled by
+    sqrt(heads/fan_in), the scores are O(1), as in a trained model, and
+    two computation orders of the same sequence can be compared."""
+    for name, p in model.named_parameters():
+        if name.rsplit(".", 1)[-1] in ("wq", "wk", "wv", "wq_b", "wkv_b"):
+            p.mul_(float(np.sqrt(p.shape[1] / p.shape[0])))
+
+
+def lm_weights(cfg, device):
+    """Seeded random weights for ``cfg`` on ``device``: the JAX package's
+    init (``init_transformer``) with q/k/v at fan-in scale."""
+    model, _ = tf_mod.init_transformer(
+        cfg, torch.Generator(device).manual_seed(MODEL_SEED))
+    fan_in_qkv(model)
+    return model
+
+
+def no_drop(cfg):
+    """``cfg`` with a capacity of E/top_k slots an expert, which holds
+    every token in any pass (a dense config as it is)."""
+    if not cfg.moe:
+        return cfg
+    return dataclasses.replace(cfg,
+                               capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+@contextlib.contextmanager
+def recorded_routes(into: list):
+    """Append each MoE dispatch's expert sets, (T, top_k) sorted, to
+    ``into`` while the block runs (the router as ``_moe_dispatch_local``
+    computes it)."""
+    dispatch = tf_mod._moe_dispatch_local
+
+    def recording(cfg, x, router_w, *experts):
+        logits = torch.einsum("td,de->te", x.float(), router_w.float())
+        top = torch.topk(torch.softmax(logits, dim=-1), cfg.top_k, dim=-1)
+        into.append(top.indices.sort(dim=-1).values)
+        return dispatch(cfg, x, router_w, *experts)
+    tf_mod._moe_dispatch_local = recording
+    try:
+        yield
+    finally:
+        tf_mod._moe_dispatch_local = dispatch
+
+
+def route_differences(served: list, ref: list) -> tuple[int, int | None]:
+    """The (token, MoE layer) pairs routed to other experts in a served
+    run (its prefill, then one token a decode step) than in the prefill
+    of the served sequence, and the first position among them."""
+    n_moe = len(ref)
+    count, first = 0, None
+    for layer in range(n_moe):
+        got = torch.cat(served[layer::n_moe])
+        diff = (got != ref[layer][:got.shape[0]]).any(dim=-1)
+        count += int(diff.sum())
+        if diff.any():
+            pos = int(diff.nonzero()[0, 0])
+            first = pos if first is None else min(first, pos)
+    return count, first
+
+
+def lm_f32_check(cfg, device) -> dict:
+    """``prefill`` (logits and caches) and ``LM_CHECK_STEPS`` decode steps
+    of ``cfg`` in float32 on ``device``, held to the same code on the CPU
+    with the same weights (seeded on the device, copied to the host); then
+    ``serve_lm`` on the card, each step held to a prefill of the served
+    sequence (a MoE config at ``no_drop`` capacity)."""
+    t = time.perf_counter()
+    model = lm_weights(cfg, device)
+    host = ParamTree(model.tree()).to("cpu")
+    init_s = time.perf_counter() - t
+    rng = np.random.default_rng(MODEL_SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, LM_PROMPT)))
+    s_max = LM_PROMPT + LM_CHECK_STEPS
+    errs = {}
+
+    def hold(label, got, want):
+        logits_g, cache_g = got
+        logits_c, cache_c = want
+        errs[label] = rel_err(logits_g, logits_c)
+        errs[label + "_cache"] = max(
+            rel_err(g, c) for g, c in zip(tree_leaves(cache_g),
+                                          tree_leaves(cache_c)))
+
+    t = time.perf_counter()
+    got = tf_mod.prefill(cfg, model, toks.to(device), s_max,
+                         logits_last_only=False)
+    serve_mod._sync(device)
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    want = tf_mod.prefill(cfg, host, toks, s_max, logits_last_only=False)
+    host_s = time.perf_counter() - t
+    hold("prefill", got, want)
+    for i in range(LM_CHECK_STEPS):
+        nt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 1)))
+        got = tf_mod.decode_step(cfg, model, got[1], nt.to(device),
+                                 LM_PROMPT + i)
+        want = tf_mod.decode_step(cfg, host, want[1], nt, LM_PROMPT + i)
+        hold(f"decode{i}", got, want)
+    worst = max(errs.values())
+    check(worst <= F32_TOL, f"{cfg.name} float32 on the card within "
+          f"{F32_TOL} of the CPU (worst {worst})")
+    held_cfg = no_drop(cfg)
+    served = serve_mod.serve_lm(LM_TOKENS, cfg=held_cfg, params=model,
+                                device=device)
+    step_err, same_argmax = decode_against_prefill(held_cfg, model, served)
+    check(max(step_err) <= F32_TOL, f"{cfg.name} float32 decode within "
+          f"{F32_TOL} (relative L2) of the prefill (worst {max(step_err)})")
+    out = {"layers": cfg.n_layers, "params": cfg.num_params(),
+           "init_s": init_s, "prefill_card_s": card_s,
+           "prefill_host_s": host_s, "tol": F32_TOL, "max_rel_err": errs,
+           "decode_vs_prefill": {
+               "capacity_factor": held_cfg.capacity_factor,
+               "logits_rel_l2_max": max(step_err),
+               "argmax_equal": f"{same_argmax}/{LM_TOKENS}"}}
+    del model, host, got, want, served
+    _free()
+    return out
+
+
+def decode_against_prefill(cfg, model, served) -> tuple[list, int]:
+    """Each served step's logits against a ``prefill`` of the served
+    sequence: (relative L2 errors, steps whose argmax agrees)."""
+    n = len(served["ids"])
+    seq = torch.cat([served["prompt"], torch.tensor(
+        [served["ids"][:-1]], dtype=torch.int32,
+        device=served["prompt"].device)], dim=1)
+    ref, _ = tf_mod.prefill(cfg, model, seq, seq.shape[1],
+                            logits_last_only=False)
+    ref = ref[:, LM_PROMPT - 1:]
+    errs = [rel_l2(served["logits"][:, i], ref[:, i]) for i in range(n)]
+    return errs, int((served["logits"].argmax(-1) == ref.argmax(-1)).sum())
+
+
+def decode_busy_share(cfg, model, device) -> dict:
+    """``LM_PROFILE_STEPS`` decode steps under ``torch.profiler``: the
+    union of the card's kernel intervals over the wall time (the busy
+    share; the profiler's own host cost is in the wall), and the kernels a
+    step launches."""
+    steps = LM_PROFILE_STEPS
+    prompt = torch.zeros((1, LM_PROMPT), dtype=torch.int32, device=device)
+    _, cache = tf_mod.prefill(cfg, model, prompt, LM_PROMPT + steps)
+    tok = prompt[:, :1]
+    serve_mod._sync(device)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        for i in range(steps):
+            logits, cache = tf_mod.decode_step(cfg, model, cache, tok,
+                                               LM_PROMPT + i)
+            tok = logits.argmax(-1)
+            int(tok[0, 0])
+        wall_us = (time.perf_counter() - t) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"steps": steps, "wall_ms": wall_us / 1e3,
+            "device_busy_ms": busy / 1e3, "busy_share": busy / wall_us,
+            "kernels_per_step": len(spans) / steps}
+
+
+def lm_serve(cfg, device) -> dict:
+    """``LM_REQUESTS`` greedy requests through ``serve_lm`` in the
+    config's dtype, timed; each step's logits of the last held to a
+    prefill of the served sequence. A MoE config is served once more at
+    ``no_drop`` capacity for that (its timed requests keep the config's
+    own, whose drops differ between a 1-token and a whole-sequence pass;
+    that agreement is reported), and its routes are recorded in both: a
+    token whose hidden state rounds otherwise can pick other experts,
+    which moves its step's logits by up to about 0.12 and, through
+    attention, later steps. So the steps before the first position routed
+    otherwise are held one by one, and the median step (which a fault of
+    the decode path would move, and a few rerouted tokens do not)."""
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = lm_weights(cfg, device)
+    serve_mod._sync(device)
+    init_s = time.perf_counter() - t
+    wbytes = weight_bytes(model)
+    runs = [serve_mod.serve_lm(LM_TOKENS, cfg=cfg, params=model,
+                               device=device)
+            for _ in range(LM_REQUESTS)]
+    last = runs[-1]
+    own_err = own_argmax = n_rerouted = first_rerouted = None
+    held_cfg = no_drop(cfg)
+    held = LM_TOKENS
+    if cfg.moe:
+        own_err, own_argmax = decode_against_prefill(cfg, model, last)
+        served_routes, ref_routes = [], []
+        with recorded_routes(served_routes):
+            last = serve_mod.serve_lm(LM_TOKENS, cfg=held_cfg, params=model,
+                                      device=device)
+        with recorded_routes(ref_routes):
+            step_err, same_argmax = decode_against_prefill(held_cfg, model,
+                                                           last)
+        n_rerouted, first_rerouted = route_differences(served_routes,
+                                                       ref_routes)
+        if first_rerouted is not None:
+            # step j's logits are taken at position LM_PROMPT - 1 + j
+            held = max(0, first_rerouted - (LM_PROMPT - 1))
+    else:
+        step_err, same_argmax = decode_against_prefill(cfg, model, last)
+    if held:
+        check(max(step_err[:held]) <= BF16_REL_L2,
+              f"{cfg.name} bf16 decode within {BF16_REL_L2} of the prefill "
+              f"(worst {max(step_err[:held])} over {held} steps)")
+    median = float(np.median(step_err))
+    check(median <= BF16_REL_L2, f"{cfg.name} bf16 decode's median step "
+          f"within {BF16_REL_L2} of the prefill ({median})")
+    dec = [s for r in runs[1:] for s in r["decode_s"]]
+    p50, p99 = serve_mod.p50_p99(dec)
+    profiled = decode_busy_share(cfg, model, device)
+    out = {"layers": cfg.n_layers, "dtype": str(cfg.dtype),
+           "params": sum(p.numel() for p in model.parameters()),
+           "weight_bytes": wbytes,
+           "resident_bytes": torch.cuda.max_memory_allocated(),
+           "init_s": init_s,
+           "prefill_ms": [r["prefill_s"] * 1e3 for r in runs],
+           "decode_ms_p50": p50 * 1e3, "decode_ms_p99": p99 * 1e3,
+           "decode_steps_timed": len(dec),
+           "bound_ms": wbytes / MEM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "ids": runs[-1]["ids"][:8],
+           "held_capacity_factor": held_cfg.capacity_factor,
+           "logits_rel_l2": step_err, "steps_held": held,
+           "logits_rel_l2_median": median,
+           "logits_rel_l2_tol": BF16_REL_L2,
+           "routes_differing": n_rerouted,
+           "first_position_routed_otherwise": first_rerouted,
+           "argmax_equal": f"{same_argmax}/{LM_TOKENS}",
+           "own_capacity_rel_l2_max": None if own_err is None
+           else max(own_err),
+           "own_capacity_argmax_equal": None if own_argmax is None
+           else f"{own_argmax}/{LM_TOKENS}",
+           "decode_profile": profiled}
+    del model, runs, last
+    _free()
+    return out
+
+
+def phase_models_lm(smi: str, device="cuda") -> None:
+    """Phase 8: every LM config at its published widths. (a) float32 at
+    the depth cut, the card held to the CPU; (b) ``serve_lm`` in the
+    config's own dtype, at all layers for ``LM_SERVE_ALL_LAYERS``."""
+    for name, module in LM_ARCHS.items():
+        t = time.perf_counter()
+        _free()
+        start_bytes = torch.cuda.memory_allocated()
+        cut = dataclasses.replace(module.FULL, n_layers=LM_CUT[name])
+        f32 = lm_f32_check(dataclasses.replace(
+            cut, dtype=torch.float32, param_dtype=torch.float32), device)
+        served = lm_serve(module.FULL if name in LM_SERVE_ALL_LAYERS
+                          else cut, device)
+        emit({"phase": f"models-lm-{name}", "card": smi,
+              "allocated_at_start": start_bytes, "float32_check": f32,
+              "serve": served,
+              "seconds": time.perf_counter() - t})
+
+
+def layer0_scores(cfg, model, prompt) -> dict:
+    """The first layer's attention scores over ``prompt`` (real heads,
+    causal pairs): their standard deviation, and the mean over queries
+    with two or more keys of the softmax's largest probability."""
+    p = model["blocks"][0]
+    h = rmsnorm(model["embed"][prompt.long()], p["ln1"], cfg.norm_eps)
+    q = torch.einsum("bsd,dhk->bshk", h, p["attn"]["wq"])
+    k = torch.einsum("bsd,dhk->bshk", h, p["attn"]["wk"])
+    if cfg.qkv_bias:
+        q, k = q + p["attn"]["bq"], k + p["attn"]["bk"]
+    pos = torch.arange(prompt.shape[1], device=prompt.device)
+    cos, sin = rope_freqs(cfg.head_dim, cfg.rope_theta, pos)
+    cos, sin = cos[None, :, None], sin[None, :, None]
+    q = apply_rope(q, cos, sin)[:, :, :cfg.n_heads].float()
+    kv = torch.as_tensor(cfg.kv_map()[:cfg.n_heads], device=prompt.device)
+    k = apply_rope(k, cos, sin)[:, :, kv.long()].float()
+    scores = torch.einsum("bshd,bthd->bhst", q, k) / np.sqrt(cfg.head_dim)
+    causal = pos[None, :] <= pos[:, None]
+    probs = torch.softmax(scores.masked_fill(~causal, -math.inf), dim=-1)
+    return {"score_std": float(scores[..., causal].std()),
+            "max_prob_mean": float(probs.amax(-1)[..., 1:].mean())}
+
+
+def lm_init_witness(device="cuda") -> int:
+    """``python3 chip_smoke.py --lm-init-witness``: why ``lm_weights``
+    rescales q/k/v. Qwen2.5-14B at all 48 layers, in float32 (63.1 GB)
+    and in bf16, with the JAX init's weights as drawn and then at fan-in
+    scale: per run, the first layer's attention scores on the served
+    prompt, and ``serve_lm``'s ``LM_TOKENS`` steps against a prefill of
+    the served sequence. Reported, not held; one line each."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    for dt in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(LM_ARCHS["qwen2.5-14b"].FULL, dtype=dt,
+                                  param_dtype=dt)
+        _free()
+        model, _ = tf_mod.init_transformer(
+            cfg, torch.Generator(device).manual_seed(MODEL_SEED))
+        for init in ("jax", "fan_in"):
+            if init == "fan_in":
+                fan_in_qkv(model)
+            served = serve_mod.serve_lm(LM_TOKENS, cfg=cfg, params=model,
+                                        device=device)
+            errs, agree = decode_against_prefill(cfg, model, served)
+            emit({"phase": "lm-init-witness", "card": smi,
+                  "config": cfg.name, "layers": cfg.n_layers,
+                  "dtype": str(dt), "init": init,
+                  "weight_bytes": weight_bytes(model),
+                  "layer0": layer0_scores(cfg, model, served["prompt"]),
+                  "logits_rel_l2": errs,
+                  "argmax_equal": f"{agree}/{LM_TOKENS}"})
+            del served
+        del model
+    print(smi, flush=True)
+    return 0
+
+
+def din_flops(cfg, b: int, c: int) -> int:
+    d = cfg.d_item
+    attn = b * c * cfg.seq_len * (4 * d * 80 + 80 * 40 + 40) * 2
+    final = b * c * (3 * d * 200 + 200 * 80 + 80) * 2
+    return attn + final
+
+
+def phase_models_din(smi: str, device="cuda", cfg=din_cfg.FULL,
+                     cands: int = DIN_RETRIEVAL_CANDS) -> None:
+    """Phase 9: DIN at its full 10M-item table scoring ``serve_p99``,
+    ``serve_bulk`` and ``retrieval_cand`` (cut to ``cands``) batches
+    through ``serve_din``; the ``serve_p99`` scores held to the CPU with
+    the same weights, a retrieval batch to per-candidate scoring."""
+    t_phase = time.perf_counter()
+    _free()
+    start_bytes = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    model, _ = din_mod.init_din(
+        cfg, torch.Generator(device).manual_seed(MODEL_SEED))
+    host = ParamTree(model.tree()).to("cpu")
+    init_s = time.perf_counter() - t
+    out = {}
+    for shape in ("serve_p99", "serve_bulk", "retrieval_cand"):
+        b = DIN_SHAPES[shape]["batch"]
+        c = cands if shape == "retrieval_cand" else \
+            DIN_SHAPES[shape]["n_cands"]
+        torch.cuda.reset_peak_memory_stats()
+        r = serve_mod.serve_din(b, c, DIN_REQUESTS[shape], cfg=cfg,
+                                params=model, device=device)
+        p50, p99 = serve_mod.p50_p99(r["latencies_s"])
+        flops = din_flops(cfg, b, c)
+        in_bytes = sum(v.nbytes for v in r["batch"].values())
+        row_bytes = (b * cfg.seq_len + b * c) * cfg.d_item * 4
+        bound_s = max(flops / F32_FLOPS_PER_S,
+                      (in_bytes + row_bytes + 4 * b * c) / MEM_BYTES_PER_S)
+        out[shape] = {"batch": b, "cands": c, "requests": len(r[
+            "latencies_s"]), "p50_ms": p50 * 1e3, "p99_ms": p99 * 1e3,
+            "scores_per_s": b * c / p50, "peak_bytes":
+            torch.cuda.max_memory_allocated(), "flops": flops,
+            "bound_ms": bound_s * 1e3, "bound_by": "operations"
+            if flops / F32_FLOPS_PER_S >= (in_bytes + row_bytes)
+            / MEM_BYTES_PER_S else "bytes"}
+        check(bool(torch.isfinite(r["scores"]).all())
+              and tuple(r["scores"].shape) == (b, c),
+              f"din {shape}: finite scores of shape ({b}, {c})")
+        if shape == "serve_p99":
+            want = din_mod.forward(cfg, host,
+                                   din_mod.to_device(r["batch"], "cpu"))
+            err = float((r["scores"].cpu() - want).abs().max())
+            check(torch.allclose(r["scores"].cpu(), want, atol=1e-5,
+                                 rtol=1e-4),
+                  f"din serve_p99 on the card equals the CPU ({err})")
+            out[shape]["max_abs_err_vs_cpu"] = err
+        if shape == "retrieval_cand":
+            errs = []
+            for j in (0, 1, c // 2, c - 1):
+                one = {**r["batch"],
+                       "cand_item": r["batch"]["cand_item"][:, j:j + 1],
+                       "cand_cat": r["batch"]["cand_cat"][:, j:j + 1],
+                       "labels": r["batch"]["labels"][:, j:j + 1]}
+                single = din_mod.forward(cfg, model,
+                                         din_mod.to_device(one, device))
+                errs.append(abs(float(single[0, 0])
+                                - float(r["scores"][0, j])))
+            check(max(errs) <= 1e-5, f"din retrieval equals per-candidate "
+                  f"scoring ({max(errs)})")
+            out[shape]["max_abs_err_vs_single"] = max(errs)
+        del r
+        _free()
+    emit({"phase": "models-din", "card": smi, "params": cfg.num_params(),
+          "weight_bytes": weight_bytes(model),
+          "allocated_at_start": start_bytes, "init_s": init_s,
+          "retrieval_cut": {"cands": cands, "from": DIN_SHAPES[
+              "retrieval_cand"]["n_cands"]}, **out,
+          "seconds": time.perf_counter() - t_phase})
+    del model, host
+    _free()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1864,6 +2383,12 @@ def main() -> int:
     phase_serve_chaos()
     phase_catalog(launches)
 
+    # -- 8. the LM configs at full width; 9. DIN at its full table ---------
+    before = dict(K.LAUNCHES)
+    phase_models_lm(smi)
+    phase_models_din(smi)
+    check(K.LAUNCHES == before, "the model phases launch no scan kernel")
+
     phase_scan_kernels(scan_kernel_labels(all_plan, paper_plan, cover_plan,
                                           limits))
     kernels = []
@@ -1893,4 +2418,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--mesh-rank":
         sys.exit(mesh_rank(json.loads(sys.argv[2])))
+    if sys.argv[1:] == ["--lm-init-witness"]:
+        sys.exit(lm_init_witness())
     sys.exit(main())
