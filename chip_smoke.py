@@ -158,6 +158,31 @@ Phases (one JSON line each, plus the last lines described below):
    retrieval batch to scoring each alone.
    Both phases run after the card's memory from earlier phases is freed,
    and launch no scan kernel.
+10. train-lm — the training path (``models.transformer.make_train_step``,
+   ``optim.AdamW``, ``launch.train``; plain torch, no scan kernel): (a)
+   ``train-lm-f32-<arch>``: each LM config at its published widths and
+   the depth cut of phase 8, in float32 with its remat and chunked loss,
+   one microbatch of 1 × 32 tokens; each gradient leaf on the card within
+   ``F32_TOL`` of its largest magnitude of the same step on the CPU with
+   the same weights, and the loss. (b) ``train-lm-granite-full``:
+   granite-moe-1b-a400m's FULL config unchanged (24 layers, 1,410,128,896
+   parameters, float32 masters and moments, bf16 compute, remat full,
+   grad_accum 2, loss_chunk 512) through ``launch.train.train`` for
+   ``TRAIN_STEPS`` steps at train_4k's sequence of 4,096 with the batch
+   cut from 256 to 8: every loss finite; step ms (p50 after the first),
+   tokens/s, model TFLOP/s (6 · 504,159,232 active parameters · tokens)
+   and its share of 989 TFLOP/s, peak bytes; then one step under
+   ``torch.profiler`` (busy share, device time by kind of kernel, the
+   kernels with the most), and one layer's attention and MoE FFN and the
+   loss head timed apart (CUDA events), the step rebuilt from them.
+   (c) ``train-lm-remat``: at a 2-layer cut, one step's gradients with
+   remat full against none on the same weights, each beside a second
+   none run (the card's own spread): float32 each leaf within
+   ``F32_TOL``, bf16 all leaves within ``BF16_REL_L2`` relative L2. (d)
+   ``train-lm-resume``: at the 2-layer cut, ``launch.train`` for 2 steps
+   with a checkpoint at step 2, restored bit for bit, and a run resumed
+   from it against the state in memory stepped on the same batch (loss
+   within ``RESUME_LOSS_RTOL``).
 
 Then one ``scan-kernels`` line: per compiled plan, the NVRTC compile
 time, ptxas' report (registers, shared memory, spills), the resident
@@ -168,7 +193,8 @@ instructions (``cuobjdump -sass``). Then one
 line, and as the last line ``{"ok": true, "device": {...}}``. Any
 mismatch or exception exits nonzero before that line.
 
-``python3 chip_smoke.py --lm-init-witness`` runs none of that: it serves
+``python3 chip_smoke.py --train-lm`` runs phase 10 alone, then the card's
+line. ``python3 chip_smoke.py --lm-init-witness`` runs none of that: it serves
 Qwen2.5-14B at all 48 layers in float32 and in bf16, with the JAX init's
 weights as drawn and at fan-in scale, and prints for each the first
 layer's attention score statistics and the decode steps' agreement with
@@ -203,6 +229,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch import kernels as K, qa  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.core import report  # noqa: E402
 from repro_torch.core.expr import (  # noqa: E402
     OP_ANYBITS, OP_EMIT, OP_HASBITS, And, AnyBits, Cmp, EqPlanes, HasBits,
@@ -215,14 +242,17 @@ from repro_torch.dist import ChunkScheduler, FaultInjector, WorkerFailure  # noq
 from repro_torch.kernels.fused_scan import ops as fops, ref as fref  # noqa
 from repro_torch.kernels.hll import ops as hops, ref as href  # noqa
 from repro_torch.kernels.qap_count import ops as qops, ref as qref  # noqa
-from repro_torch.configs import LM_ARCHS, DIN_SHAPES, din_cfg  # noqa: E402
+from repro_torch.configs import (LM_ARCHS, LM_SHAPES,  # noqa: E402
+                                 DIN_SHAPES, din_cfg, granite_moe_1b)
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.models import din as din_mod  # noqa: E402
 from repro_torch.models import transformer as tf_mod  # noqa: E402
 from repro_torch.models.common import (ParamTree, apply_rope,  # noqa: E402
                                        rmsnorm, rope_freqs)
-from repro_torch.models.convert import tree_leaves  # noqa: E402
+from repro_torch.optim import AdamW, cosine_schedule  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 from repro_torch.rdf import bsbm_ntriples, synth_encoded  # noqa: E402
 from repro_torch.rdf import ingest as rdf_ingest  # noqa: E402
 from repro_torch.rdf.triple_tensor import TripleTensor  # noqa: E402
@@ -286,6 +316,26 @@ DIN_REQUESTS = {"serve_p99": 20, "serve_bulk": 5, "retrieval_cand": 3}
 # (B, C, T, 144) float32, 57.6 GB at 10^6, and as much again in its parts
 DIN_RETRIEVAL_CANDS = 250_000
 F32_FLOPS_PER_S = 67e12        # float32 outside the tensor cores (SXM)
+# phase 10, the training path: granite FULL at train_4k's sequence, the
+# batch cut from 256 to 8 to fit one card (LM_SHAPES["train_4k"])
+TRAIN_STEPS = 8
+TRAIN_BATCH = 8
+TRAIN_SEQ = 4096
+TRAIN_CHECK_TOKENS = 32        # batch 1: the float32 card-vs-CPU gradients
+TRAIN_CUT = 2                  # depth cut of the remat check and the drill
+REMAT_BATCH = 4                # remat none keeps every layer's activations
+# a resumed step against the same state stepped in memory: bit-identical
+# states, so only MoE's index_add_ order differs (bf16, 2 layers)
+RESUME_LOSS_RTOL = 1e-3
+PROFILE_TOP = 12               # kernels listed from the profiled step
+SPLIT_REPS = 3                 # timed calls of each part of a layer
+# the profiled step's kernels by kind, from words in their lowercased
+# names (the first that matches; "elementwise" otherwise)
+KERNEL_KINDS = (("matmul", ("gemm", "xmma", "cutlass", "wgmma")),
+                ("indexing", ("index", "scatter", "gather")),
+                ("sort", ("sort", "radix")),
+                ("copy or cast", ("copy",)),
+                ("reduction", ("reduce",)))
 REPLACES = {
     "qap_count": "src/repro/kernels/qap_count/kernel.py:105",
     "fused_scan": "src/repro/kernels/fused_scan/kernel.py:114",
@@ -1837,16 +1887,20 @@ def fan_in_qkv(model) -> None:
     layer (``--lm-init-witness`` measures it). Scaled by
     sqrt(heads/fan_in), the scores are O(1), as in a trained model, and
     two computation orders of the same sequence can be compared."""
-    for name, p in model.named_parameters():
-        if name.rsplit(".", 1)[-1] in ("wq", "wk", "wv", "wq_b", "wkv_b"):
-            p.mul_(float(np.sqrt(p.shape[1] / p.shape[0])))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("wq", "wk", "wv", "wq_b",
+                                           "wkv_b"):
+                p.mul_(float(np.sqrt(p.shape[1] / p.shape[0])))
 
 
-def lm_weights(cfg, device):
+def lm_weights(cfg, device, trainable=False):
     """Seeded random weights for ``cfg`` on ``device``: the JAX package's
-    init (``init_transformer``) with q/k/v at fan-in scale."""
+    init (``init_transformer``) with q/k/v at fan-in scale; ``trainable``
+    master weights that require gradients."""
     model, _ = tf_mod.init_transformer(
-        cfg, torch.Generator(device).manual_seed(MODEL_SEED))
+        cfg, torch.Generator(device).manual_seed(MODEL_SEED),
+        trainable=trainable)
     fan_in_qkv(model)
     return model
 
@@ -2241,6 +2295,319 @@ def phase_models_din(smi: str, device="cuda", cfg=din_cfg.FULL,
     _free()
 
 
+# -- 10. the training path ----------------------------------------------------
+
+def grads_of(cfg, model, toks) -> tuple[dict, float, float]:
+    """One step's gradients of ``model`` on ``toks`` (``accumulate_grads``,
+    the train step's backward), as {name: tensor}, with the loss and aux;
+    the model's ``.grad`` is cleared after."""
+    loss, aux = tf_mod.accumulate_grads(cfg, model, toks)
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return grads, float(loss), float(aux)
+
+
+def card_rel_err(got, want) -> float:
+    """``rel_err`` computed on ``got``'s device (a card): max |got - want|
+    over max |want|."""
+    want = want.to(got.device)
+    return float((got - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def grad_rel_l2(got: dict, want: dict) -> float:
+    """Relative L2 error of all gradient leaves together."""
+    num = sum(float((got[n].float() - w.float()).norm()) ** 2
+              for n, w in want.items())
+    den = sum(float(w.float().norm()) ** 2 for w in want.values())
+    return math.sqrt(num / max(den, 1e-30))
+
+
+def train_f32_check(cfg, device) -> dict:
+    """The gradients of one step of ``cfg`` in float32 on ``device`` (its
+    remat and chunked loss; one microbatch) held to the same code on the
+    CPU with the same weights: each leaf within ``F32_TOL`` of its largest
+    magnitude, and the loss."""
+    t = time.perf_counter()
+    model = lm_weights(cfg, device, trainable=True)
+    host = ParamTree(model.tree(), requires_grad=True).to("cpu")
+    init_s = time.perf_counter() - t
+    toks = torch.from_numpy(np.random.default_rng(MODEL_SEED).integers(
+        0, cfg.vocab_size, (1, TRAIN_CHECK_TOKENS)))
+    t = time.perf_counter()
+    got, loss_g, aux_g = grads_of(cfg, model, toks.to(device))
+    serve_mod._sync(device)
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    want, loss_c, aux_c = grads_of(cfg, host, toks)
+    host_s = time.perf_counter() - t
+    errs = {n: card_rel_err(got[n], w) for n, w in want.items()}
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= F32_TOL, f"{cfg.name} float32 gradients on the "
+          f"card within {F32_TOL} of the CPU (worst {worst}: "
+          f"{errs[worst]})")
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    check(loss_err <= F32_TOL, f"{cfg.name} float32 loss on the card "
+          f"({loss_g}) equals the CPU's ({loss_c})")
+    out = {"layers": cfg.n_layers, "params": cfg.num_params(),
+           "tokens": TRAIN_CHECK_TOKENS, "remat": cfg.remat,
+           "loss_chunk": cfg.loss_chunk, "init_s": init_s,
+           "card_s": card_s, "host_s": host_s, "loss": loss_g,
+           "aux": aux_g, "loss_rel_err": loss_err, "tol": F32_TOL,
+           "grad_leaves": len(errs), "grad_max_rel_err": errs[worst],
+           "worst_leaf": worst}
+    del model, host, got, want
+    _free()
+    return out
+
+
+def profile_train_step(cfg, state, toks) -> dict:
+    """One train step under ``torch.profiler``: the card's busy share
+    (the union of kernel intervals over the wall) and the kernels with the
+    most device time."""
+    step = tf_mod.make_train_step(cfg, AdamW(lr=3e-4))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        state, metrics = step(state, {"tokens": toks})
+        float(metrics["loss"])
+        wall_us = (time.perf_counter() - t) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(len(kernels) > 0, "the profiled train step ran on the card")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name: dict = {}
+    for e in kernels:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:PROFILE_TOP]
+    total_us = sum(us for _, us in by_name.values())
+    kinds: dict = {}
+    for n, (c, us) in by_name.items():
+        kind = next((k for k, keys in KERNEL_KINDS
+                     if any(key in n.lower() for key in keys)),
+                    "elementwise")
+        kc, kus = kinds.get(kind, (0, 0.0))
+        kinds[kind] = (kc + c, kus + us)
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "busy_share": busy / wall_us, "kernels": len(kernels),
+            "kernel_ms_total": total_us / 1e3,
+            "by_kind": {k: {"launches": c, "ms": us / 1e3,
+                            "share": us / total_us}
+                        for k, (c, us) in sorted(kinds.items(),
+                                                 key=lambda kv: -kv[1][1])},
+            "top": [{"name": n[:120], "launches": c, "ms": us / 1e3,
+                     "share": us / total_us} for n, (c, us) in top]}
+
+
+def layer_split(cfg, device) -> dict:
+    """Where a train step's time goes, by part: one layer of ``cfg`` at the
+    step's microbatch, its attention (the norm before it, ``_gqa_attention``)
+    and its MoE FFN (the norm, ``_moe_ffn``), and the embedding, final norm
+    and chunked loss (``loss_fn`` of a 0-layer model), each timed with
+    CUDA events forward only and forward plus backward. Under remat
+    ``full`` a step runs each layer's forward, its recompute and its
+    backward, so the step rebuilt from the parts is ``grad_accum`` ×
+    (layers × (fb + f) of attention and MoE + fb of the head)."""
+    torch.manual_seed(MODEL_SEED)
+    mb, s = TRAIN_BATCH // cfg.grad_accum, TRAIN_SEQ
+    one = dataclasses.replace(cfg, n_layers=1)
+    lp = tf_mod.compute_dtypes(one, lm_weights(one, device, True).tree(
+        lambda p: p))["blocks"][0]
+    x = torch.randn(mb, s, cfg.d_model, device=device, dtype=cfg.dtype,
+                    requires_grad=True)
+    positions = torch.arange(s, device=device)
+    head_cfg = dataclasses.replace(cfg, n_layers=0)
+    head = tf_mod.compute_dtypes(head_cfg, lm_weights(
+        head_cfg, device, True).tree(lambda p: p))
+    toks = torch.from_numpy(next(train_mod.token_batches(cfg, mb, s))).to(
+        device)
+    parts = {
+        "attention": lambda: tf_mod._gqa_attention(
+            one, lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps),
+            positions)[0],
+        "moe": lambda: tf_mod._moe_ffn(
+            one, lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps))[0],
+        "head": lambda: tf_mod.loss_fn(head_cfg, head, toks)[0]}
+    out = {}
+    for name, fn in parts.items():
+        out[name] = {"fwd_ms": cuda_ms(fn, SPLIT_REPS),
+                     "fwd_bwd_ms": cuda_ms(
+                         lambda fn=fn: fn().float().sum().backward(),
+                         SPLIT_REPS)}
+    layer_ms = sum(out[k]["fwd_ms"] + out[k]["fwd_bwd_ms"]
+                   for k in ("attention", "moe"))
+    step_ms = cfg.grad_accum * (cfg.n_layers * layer_ms
+                                + out["head"]["fwd_bwd_ms"])
+    attn_ms = cfg.grad_accum * cfg.n_layers * (
+        out["attention"]["fwd_ms"] + out["attention"]["fwd_bwd_ms"])
+    return {"microbatch": mb, "parts": out, "rebuilt_step_ms": step_ms,
+            "attention_share_of_rebuilt": attn_ms / step_ms}
+
+
+def train_full(cfg, smi: str, device) -> dict:
+    """``cfg`` as it is (granite FULL) through ``launch.train``'s loop:
+    ``TRAIN_STEPS`` steps at ``TRAIN_BATCH`` × ``TRAIN_SEQ``, every loss
+    finite; step p50 over the steps after the first, tokens/s, model
+    TFLOP/s (6 · active params · tokens) and its share of the bf16 peak,
+    peak bytes; then one more step under the profiler."""
+    _free()
+    out = train_mod.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                          seq=TRAIN_SEQ, device=device)
+    losses = out["losses"]
+    check(all(math.isfinite(x) for x in losses + out["aux"]),
+          f"{cfg.name}: every loss finite ({losses})")
+    p50 = float(np.median(out["step_ms"][1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6 * cfg.num_active_params() * tokens
+    res = {"layers": cfg.n_layers, "params": cfg.num_params(),
+           "active_params": cfg.num_active_params(), "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "batch_cut_from": LM_SHAPES["train_4k"][
+               "batch"], "remat": cfg.remat, "grad_accum": cfg.grad_accum,
+           "loss_chunk": cfg.loss_chunk, "steps": TRAIN_STEPS,
+           "losses": losses, "aux": out["aux"], "step_ms": out["step_ms"],
+           "step_ms_p50": p50, "tokens_per_s": tokens / p50 * 1e3,
+           "model_flops_per_step": flops,
+           "model_tflops_per_s": flops / p50 / 1e9,
+           "share_of_bf16_peak": flops / (p50 / 1e3)
+           / train_mod.H100_BF16_FLOPS_PER_S,
+           "peak_bytes": out["peak_bytes"], "card": smi}
+    toks = torch.from_numpy(next(train_mod.token_batches(
+        cfg, TRAIN_BATCH, TRAIN_SEQ))).to(device)
+    res["profile"] = profile_train_step(cfg, out["state"], toks)
+    del out, toks
+    _free()
+    res["split"] = layer_split(cfg, device)
+    _free()
+    return res
+
+
+def remat_check(cfg, device) -> dict:
+    """The gradients of one step of ``cfg`` (a depth cut) with remat
+    ``full`` against ``none`` on the same weights and tokens, each beside
+    a second ``none`` run (the card's own run-to-run spread: MoE outputs
+    are summed by ``index_add_`` in varying order). Float32: each leaf
+    within ``F32_TOL`` of its largest magnitude; the config's bf16: all
+    leaves' relative L2 within ``BF16_REL_L2``."""
+    out = {}
+    for label, c in (("float32", dataclasses.replace(
+            cfg, dtype=torch.float32)), ("bf16", cfg)):
+        model = lm_weights(c, device, trainable=True)
+        toks = torch.from_numpy(next(train_mod.token_batches(
+            c, REMAT_BATCH, TRAIN_SEQ))).to(device)
+        runs = {}
+        for remat in ("none", "full", "none_again"):
+            rc = dataclasses.replace(c, remat=remat.split("_")[0])
+            runs[remat] = grads_of(rc, model, toks)[0]
+        want = runs["none"]
+        rel = {k: grad_rel_l2(runs[k], want) for k in ("full", "none_again")}
+        leaf = {k: max(card_rel_err(runs[k][n], w) for n, w in want.items())
+                for k in ("full", "none_again")}
+        if label == "float32":
+            check(leaf["full"] <= F32_TOL, f"float32 remat full within "
+                  f"{F32_TOL} of none ({leaf['full']})")
+        else:
+            check(rel["full"] <= BF16_REL_L2, f"bf16 remat full within "
+                  f"{BF16_REL_L2} (relative L2) of none ({rel['full']})")
+        out[label] = {"full_vs_none_rel_l2": rel["full"],
+                      "none_vs_none_rel_l2": rel["none_again"],
+                      "full_vs_none_leaf_max_rel_err": leaf["full"],
+                      "none_vs_none_leaf_max_rel_err": leaf["none_again"]}
+        del model, runs, want
+        _free()
+    return {"layers": cfg.n_layers, "batch": REMAT_BATCH, "seq": TRAIN_SEQ,
+            "f32_tol": F32_TOL, "bf16_rel_l2_tol": BF16_REL_L2, **out}
+
+
+def leaves_of(state: dict) -> list:
+    return [state["step"], state["opt"]["count"]] + [
+        t for tree in (state["params"].tree(), state["opt"]["m"],
+                       state["opt"]["v"]) for t in tree_leaves(tree)]
+
+
+def resume_drill_lm(cfg, device) -> dict:
+    """``launch.train`` at ``cfg`` (a depth cut) for 2 steps with a
+    checkpoint at step 2 (``save_async``, then the final ``save``); the
+    checkpoint restored equals the state in memory bit for bit; a run
+    resumed from it (``--resume``, 3 steps) and the state in memory
+    stepped once on the same batch (the stream's first: a resumed run
+    draws from its start) give the same loss (``RESUME_LOSS_RTOL``)."""
+    os.makedirs(BUILD, exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=BUILD)
+    try:
+        t = time.perf_counter()
+        first = train_mod.train(cfg, steps=2, batch=TRAIN_BATCH,
+                                seq=TRAIN_SEQ, ckpt_dir=ckpt, ckpt_every=2,
+                                device=device)
+        train_s = time.perf_counter() - t
+        mgr = CheckpointManager(ckpt)
+        check(mgr.all_steps() == [2], f"checkpoints {mgr.all_steps()}")
+        t = time.perf_counter()
+        restored = train_mod.restore(cfg, mgr, 2, first["state"], device)
+        restore_s = time.perf_counter() - t
+        pairs = list(zip(leaves_of(restored), leaves_of(first["state"])))
+        same = all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in pairs)
+        check(same, "the restored train state equals the saved one")
+        del restored
+        resumed = train_mod.train(cfg, steps=3, batch=TRAIN_BATCH,
+                                  seq=TRAIN_SEQ, ckpt_dir=ckpt, resume=True,
+                                  device=device)
+        opt = AdamW(lr=cosine_schedule(3e-4, warmup=1, total=3))
+        toks = torch.from_numpy(next(train_mod.token_batches(
+            cfg, TRAIN_BATCH, TRAIN_SEQ))).to(device)
+        _, m = tf_mod.make_train_step(cfg, opt)(first["state"],
+                                                {"tokens": toks})
+        cont = float(m["loss"])
+        err = abs(resumed["losses"][0] - cont) / abs(cont)
+        check(len(resumed["losses"]) == 1 and err <= RESUME_LOSS_RTOL,
+              f"resumed step's loss {resumed['losses']} equals the "
+              f"continued state's {cont}")
+        return {"layers": cfg.n_layers, "leaves": len(pairs),
+                "bit_identical": same, "checkpoint_bytes": sum(
+                    os.path.getsize(os.path.join(ckpt, "step_0000000002", f))
+                    for f in ("arrays.npz", "manifest.json")),
+                "train_2_steps_s": train_s, "restore_s": restore_s,
+                "resumed_loss": resumed["losses"][0], "continued_loss": cont,
+                "loss_rel_err": err, "tol": RESUME_LOSS_RTOL}
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        _free()
+
+
+def phase_train_lm(smi: str, device="cuda") -> None:
+    """Phase 10: the training path of ``repro_torch`` (``make_train_step``,
+    ``optim.AdamW``, ``launch.train``; plain torch, no scan kernel)."""
+    t_phase = time.perf_counter()
+    for name, module in LM_ARCHS.items():
+        t = time.perf_counter()
+        _free()
+        cut = dataclasses.replace(
+            module.FULL, n_layers=LM_CUT[name], dtype=torch.float32,
+            param_dtype=torch.float32, grad_accum=1)
+        emit({"phase": f"train-lm-f32-{name}", "card": smi,
+              **train_f32_check(cut, device),
+              "seconds": time.perf_counter() - t})
+    t = time.perf_counter()
+    emit({"phase": "train-lm-granite-full", **train_full(
+        granite_moe_1b.FULL, smi, device),
+        "seconds": time.perf_counter() - t})
+    cut = dataclasses.replace(granite_moe_1b.FULL, n_layers=TRAIN_CUT)
+    t = time.perf_counter()
+    emit({"phase": "train-lm-remat", "card": smi,
+          **remat_check(cut, device), "seconds": time.perf_counter() - t})
+    t = time.perf_counter()
+    emit({"phase": "train-lm-resume", "card": smi,
+          **resume_drill_lm(cut, device),
+          "seconds": time.perf_counter() - t})
+    emit({"phase": "train-lm", "seconds": time.perf_counter() - t_phase})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2387,6 +2754,7 @@ def main() -> int:
     before = dict(K.LAUNCHES)
     phase_models_lm(smi)
     phase_models_din(smi)
+    phase_train_lm(smi)
     check(K.LAUNCHES == before, "the model phases launch no scan kernel")
 
     phase_scan_kernels(scan_kernel_labels(all_plan, paper_plan, cover_plan,
@@ -2415,9 +2783,22 @@ def main() -> int:
     return 0
 
 
+def train_only() -> int:
+    """``--train-lm``: phase 10 alone, then the card's line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = train_mod.card_line()
+    phase_train_lm(smi)
+    print(smi, flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--mesh-rank":
         sys.exit(mesh_rank(json.loads(sys.argv[2])))
     if sys.argv[1:] == ["--lm-init-witness"]:
         sys.exit(lm_init_witness())
+    if sys.argv[1:] == ["--train-lm"]:
+        sys.exit(train_only())
     sys.exit(main())

@@ -88,6 +88,8 @@ class CheckpointManager:
                           ignore_errors=True)
 
     def save(self, step: int, tree, metadata: dict[str, Any] | None = None):
+        # an async write of the same step would share its temp directory
+        self.wait()
         self._write(step, _flatten(tree), metadata or {})
 
     def save_async(self, step: int, tree,

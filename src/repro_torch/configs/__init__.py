@@ -2,9 +2,12 @@
 ``SMOKE`` configurations (``repro.configs``) with torch dtypes, and the
 shape sets they are served and trained at.
 
-``LM_ARCHS`` maps each LM architecture's name to its module; the registry
-of dry-run bundles waits for the training and dry-run slices.
+``LM_ARCHS`` maps each LM architecture's name to its module, and
+``lm_config`` gives the train launcher's config of one at a scale; the
+registry of dry-run bundles waits for the dry-run slice.
 """
+import dataclasses
+
 from . import (deepseek_v2_236b, din_cfg, gemma3_12b, granite_moe_1b,
                internlm2_20b, qwen2_5_14b)
 
@@ -20,4 +23,17 @@ DIN_SHAPES = din_cfg.DIN_SHAPES
 LM_ARCHS = {m.FULL.name: m for m in (qwen2_5_14b, internlm2_20b, gemma3_12b,
                                       deepseek_v2_236b, granite_moe_1b)}
 
-__all__ = ["LM_SHAPES", "DIN_SHAPES", "LM_ARCHS", "din_cfg"]
+
+def lm_config(arch: str, scale: str):
+    """``arch``'s config at the train launcher's ``scale`` (as
+    ``repro.launch.train``): ``smoke`` its SMOKE, ``full`` its FULL, and
+    ``small`` a ~100M-class config of the same family."""
+    mod = LM_ARCHS[arch]
+    if scale == "small":
+        return dataclasses.replace(
+            mod.SMOKE, n_layers=8, d_model=512, n_heads=8, n_kv_heads=4,
+            head_dim=64, d_ff=1536, vocab_size=32768)
+    return {"smoke": mod.SMOKE, "full": mod.FULL}[scale]
+
+
+__all__ = ["LM_SHAPES", "DIN_SHAPES", "LM_ARCHS", "lm_config", "din_cfg"]

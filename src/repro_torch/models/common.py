@@ -7,7 +7,8 @@ are float32 products of float32 operands (the JAX code's
 
 ``ParamTree`` holds a model's weights as ``nn.Module``s whose names follow
 the JAX parameter tree's keys: a dict becomes a module, a list an
-``nn.ModuleList``, a tensor a parameter; ``p["wq"]`` reads one.
+``nn.ModuleList``, a tensor a parameter; ``p["wq"]`` reads one. Served
+weights do not require gradients; trained ones (``requires_grad=True``) do.
 """
 from __future__ import annotations
 
@@ -22,17 +23,18 @@ import torch.nn.functional as F
 class ParamTree(nn.Module):
     """A nested dict of tensors as modules (see the module docstring).
 
-    Parameters do not require gradients: this slice of the port serves.
+    Its parameters require gradients only with ``requires_grad=True`` (a
+    model being trained); served weights do not.
     """
 
-    def __init__(self, tree: dict):
+    def __init__(self, tree: dict, requires_grad: bool = False):
         super().__init__()
         for k, v in tree.items():
             if isinstance(v, torch.Tensor):
                 self.register_parameter(
-                    k, nn.Parameter(v, requires_grad=False))
+                    k, nn.Parameter(v, requires_grad=requires_grad))
             else:
-                self.add_module(k, _as_module(v))
+                self.add_module(k, _as_module(v, requires_grad))
 
     def __getitem__(self, key: str):
         return getattr(self, key)
@@ -40,25 +42,27 @@ class ParamTree(nn.Module):
     def __contains__(self, key: str) -> bool:
         return key in self._parameters or key in self._modules
 
-    def tree(self) -> dict:
-        """The weights as the nested dict (and lists) they came from."""
-        out: dict = {k: p.data for k, p in self._parameters.items()}
-        out.update({k: _as_tree(m) for k, m in self._modules.items()})
+    def tree(self, fn=None) -> dict:
+        """The weights as the nested dict (and lists) they came from: each
+        parameter's data, or ``fn(parameter)``."""
+        fn = fn or (lambda p: p.data)
+        out: dict = {k: fn(p) for k, p in self._parameters.items()}
+        out.update({k: _as_tree(m, fn) for k, m in self._modules.items()})
         return out
 
 
-def _as_module(v):
+def _as_module(v, requires_grad: bool):
     if isinstance(v, dict):
-        return ParamTree(v)
+        return ParamTree(v, requires_grad)
     if isinstance(v, (list, tuple)):
-        return nn.ModuleList(_as_module(x) for x in v)
+        return nn.ModuleList(_as_module(x, requires_grad) for x in v)
     raise TypeError(f"cannot hold {type(v)} in a ParamTree")
 
 
-def _as_tree(m):
+def _as_tree(m, fn):
     if isinstance(m, ParamTree):
-        return m.tree()
-    return [_as_tree(x) for x in m]
+        return m.tree(fn)
+    return [_as_tree(x, fn) for x in m]
 
 
 def normal(rng, shape, scale, dtype):

@@ -1,4 +1,5 @@
-"""Weights and decode caches carried between the JAX package and the port.
+"""Weights, decode caches and train states carried between the JAX package
+and the port.
 
 The JAX models' parameter trees reach this module as numpy arrays
 (``jax.tree.map(np.asarray, params)``): dicts of arrays whose layer stacks
@@ -6,16 +7,19 @@ lead (``blocks/attn/wq`` of shape ``(L, d, H, dh)``; gemma's
 ``blocks_local`` ``(nb, r, ...)``), and DIN's MLPs as lists of ``(w, b)``
 pairs. The port's modules hold one ``ParamTree`` per layer instead. bfloat16
 arrays (numpy's ``bfloat16`` extension dtype) are reinterpreted bit for bit.
-Imports no JAX.
+A train state, ``{"params", "opt": {"m", "v", "count"}, "step"}``, goes to
+numpy in the JAX layout, so that either package's ``CheckpointManager``
+writes the same keys and a checkpoint resumes in the other. Imports no JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..tree import tree_leaves, tree_map
 from .common import ParamTree
 from .din import DINConfig
-from .transformer import TransformerConfig, compute_dtypes
+from .transformer import TransformerConfig, compute_dtypes, master_dtypes
 
 # the JAX layer stacks and how many leading stacking dims each has
 _STACKS = {"blocks": 1, "dense_layers": 1, "blocks_global": 1,
@@ -39,40 +43,100 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def _unstack(tree, depth: int):
     """A dict of arrays with ``depth`` leading stacking dims → nested lists
     of dicts, one per layer."""
     if depth == 0:
         return tree
     n = len(next(iter(tree_leaves(tree))))
-    return [_unstack(_map(lambda a, i=i: a[i], tree), depth - 1)
+    return [_unstack(tree_map(lambda a, i=i: a[i], tree), depth - 1)
             for i in range(n)]
 
 
-def tree_leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from tree_leaves(v)
-    else:
-        yield tree
+def _per_layer(tree: dict, device) -> dict:
+    """A JAX transformer tree of numpy arrays as tensors on ``device``,
+    each layer stack as nested lists of per-layer dicts."""
+    out = {}
+    for key, sub in tree.items():
+        sub = tree_map(lambda a: tensor_from_numpy(a, device), sub)
+        out[key] = _unstack(sub, _STACKS[key]) if key in _STACKS else sub
+    return out
+
+
+def _stacked(trees: list):
+    """Same-structure dicts of arrays → one dict of arrays stacked on a new
+    leading dim."""
+    if isinstance(trees[0], dict):
+        return {k: _stacked([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def _stack(layers, depth: int):
+    """Nested lists ``depth`` deep of per-layer dicts → one dict of arrays
+    with ``depth`` leading stacking dims (the inverse of ``_unstack``)."""
+    if depth == 0:
+        return layers
+    return _stacked([_stack(x, depth - 1) for x in layers])
 
 
 def transformer_from_numpy(cfg: TransformerConfig, tree: dict,
-                           device="cuda") -> ParamTree:
+                           device="cuda", *, trainable=False) -> ParamTree:
     """The port's model from a JAX transformer parameter tree of numpy
-    arrays, with the dtypes the port stores (see ``compute_dtypes``)."""
-    params = {}
-    for key, sub in tree.items():
-        sub = _map(lambda a: tensor_from_numpy(a, device), sub)
-        params[key] = (_unstack(sub, _STACKS[key]) if key in _STACKS
-                       else sub)
+    arrays, with the dtypes the port stores (see ``compute_dtypes``), or,
+    ``trainable``, as master weights (``master_dtypes``, copies) that
+    require gradients."""
+    params = _per_layer(tree, device)
+    if trainable:
+        return ParamTree(master_dtypes(cfg, params), requires_grad=True)
     return ParamTree(compute_dtypes(cfg, params))
+
+
+def transformer_to_numpy(cfg: TransformerConfig, tree) -> dict:
+    """A port transformer tree (a ``ParamTree``, or a tree shaped like one:
+    its gradients, its optimizer moments) as a JAX parameter tree of numpy
+    arrays: layer stacks leading (``blocks`` (L, ...), gemma's
+    ``blocks_local`` (nb, r, ...)), bfloat16 as float32."""
+    del cfg  # the stacks follow from the tree's keys
+    if isinstance(tree, ParamTree):
+        tree = tree.tree()
+    out = {}
+    for key, sub in tree.items():
+        sub = tree_map(tensor_to_numpy, sub)
+        out[key] = _stack(sub, _STACKS[key]) if key in _STACKS else sub
+    return out
+
+
+def train_state_to_numpy(cfg: TransformerConfig, state: dict) -> dict:
+    """A train state of ``make_train_step`` as the JAX launcher's state
+    tree of numpy arrays (``count`` and ``step`` int32 scalars)."""
+    opt = state["opt"]
+    return {"params": transformer_to_numpy(cfg, state["params"]),
+            "opt": {"m": transformer_to_numpy(cfg, opt["m"]),
+                    "v": transformer_to_numpy(cfg, opt["v"]),
+                    "count": np.asarray(int(opt["count"]), np.int32)},
+            "step": np.asarray(int(state["step"]), np.int32)}
+
+
+def train_state_from_numpy(cfg: TransformerConfig, tree: dict,
+                           device="cuda",
+                           state_dtype=torch.float32) -> dict:
+    """A train state from the JAX launcher's state tree of numpy arrays:
+    trainable master weights, the moments in ``state_dtype``, ``count`` and
+    ``step`` int32 scalars, all on ``device`` and none sharing memory with
+    the arrays (training writes them in place)."""
+    def moments(t):
+        return tree_map(lambda a: a.to(state_dtype, copy=True),
+                    _per_layer(t, device))
+
+    def scalar(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.int32,
+                               device=device)
+    opt = tree["opt"]
+    return {"params": transformer_from_numpy(cfg, tree["params"], device,
+                                             trainable=True),
+            "opt": {"m": moments(opt["m"]), "v": moments(opt["v"]),
+                    "count": scalar(opt["count"])},
+            "step": scalar(tree["step"])}
 
 
 def din_from_numpy(cfg: DINConfig, tree: dict, device="cuda") -> ParamTree:
@@ -94,9 +158,10 @@ def cache_from_numpy(cfg: TransformerConfig, cache: dict,
                      device="cuda") -> dict:
     """A decode cache of numpy arrays (the JAX layout, which the port
     keeps) as tensors in ``cfg.dtype`` on ``device``."""
-    return _map(lambda a: tensor_from_numpy(a, device).to(cfg.dtype), cache)
+    return tree_map(lambda a: tensor_from_numpy(a, device).to(cfg.dtype),
+                    cache)
 
 
 def cache_to_numpy(cache: dict) -> dict:
     """A decode cache as numpy arrays (bfloat16 as float32)."""
-    return _map(tensor_to_numpy, cache)
+    return tree_map(tensor_to_numpy, cache)

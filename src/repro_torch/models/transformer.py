@@ -1,5 +1,5 @@
-"""LM transformer family of the port: the inference half of
-``repro.models.transformer`` for the five in-repo architectures.
+"""LM transformer family of the port: ``repro.models.transformer`` for the
+five in-repo architectures, served and trained on one device.
 
 One implementation, config-selected variants (as in the JAX package):
 * GQA attention with optional QKV bias (qwen2.5-14b, internlm2-20b)
@@ -29,8 +29,15 @@ MLA's ``ckv`` / ``krope``). ``decode_step`` writes the new token's entries
 into the cache it is given, in place, and returns it; ``cache_pos`` must
 be below the cache's length.
 
-Not in this slice: the train step (and remat, gradient accumulation, the
-chunked loss), the mesh and sharding arguments and the expert-parallel
+Training (``make_train_step``) keeps float32 master weights
+(``init_transformer(..., trainable=True)``: ``param_dtype``, the router
+float32) and casts them to the stored dtypes at the top of each
+microbatch (``compute_dtypes``), a cast autograd sees, as the JAX code's
+``.astype(dt)`` on use. ``cfg.remat`` wraps each layer in a checkpoint,
+``cfg.loss_chunk`` computes the loss a block of positions at a time, and
+``cfg.grad_accum`` splits the batch into microbatches.
+
+Not ported yet: the mesh and sharding arguments and the expert-parallel
 branch of the MoE FFN.
 """
 from __future__ import annotations
@@ -41,10 +48,12 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..dist.sharding import split_params
 from .common import (ParamTree, apply_rope, attend, normal, rmsnorm,
-                     rope_freqs, swiglu)
+                     rope_freqs, softmax_xent, swiglu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,6 +161,17 @@ class TransformerConfig:
         model, _ = init_transformer(self, None)
         return sum(p.numel() for p in model.parameters())
 
+    def num_active_params(self) -> int:
+        """Params touched per token (MoE: top_k of routed experts)."""
+        total = self.num_params()
+        if not self.moe:
+            return total
+        per_expert = (2 * self.d_model * self.d_ff_expert
+                      + self.d_ff_expert * self.d_model)
+        n_moe_layers = self.n_layers - self.first_dense_layers
+        inactive = (self.n_experts - self.top_k) * per_expert * n_moe_layers
+        return total - inactive
+
 
 # =============================================================================
 # Parameter construction
@@ -171,6 +191,18 @@ def compute_dtypes(cfg: TransformerConfig, tree, key: str | None = None):
     if isinstance(tree, dict):
         return {k: compute_dtypes(cfg, v, k) for k, v in tree.items()}
     return [compute_dtypes(cfg, v, key) for v in tree]
+
+
+def master_dtypes(cfg: TransformerConfig, tree, key: str | None = None):
+    """A copy of a weight tree in the dtypes the JAX init makes, which
+    training keeps and updates in place: ``cfg.param_dtype``, the router
+    float32."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(torch.float32 if key == "router"
+                       else cfg.param_dtype, copy=True)
+    if isinstance(tree, dict):
+        return {k: master_dtypes(cfg, v, k) for k, v in tree.items()}
+    return [master_dtypes(cfg, v, key) for v in tree]
 
 
 def _dense_init(rng, shape, logical, dtype, scale=None):
@@ -271,11 +303,13 @@ def _layer_params(cfg: TransformerConfig, rng, moe: bool):
     return p
 
 
-def init_transformer(cfg: TransformerConfig, rng):
+def init_transformer(cfg: TransformerConfig, rng, *, trainable=False):
     """Returns (model, logical): random weights drawn from ``rng`` (a
     ``torch.Generator``) on its device, or, with ``rng=None``, shapes only
     on the meta device. ``logical`` holds each weight's logical axes in a
-    tree of the model's structure."""
+    tree of the model's structure. Served weights are stored in
+    ``compute_dtypes``; ``trainable=True`` keeps the masters as drawn and
+    makes them require gradients."""
     dt = cfg.param_dtype
     tree: dict = {
         "embed": _dense_init(rng, (cfg.vocab_size, cfg.d_model),
@@ -298,6 +332,8 @@ def init_transformer(cfg: TransformerConfig, rng):
         tree["blocks"] = [_layer_params(cfg, rng, moe=cfg.moe)
                           for _ in range(n_main)]
     params, logical = split_params(tree)
+    if trainable:
+        return ParamTree(params, requires_grad=True), logical
     return ParamTree(compute_dtypes(cfg, params)), logical
 
 
@@ -532,16 +568,49 @@ def _layers(cfg: TransformerConfig, params):
         yield lp, cfg.moe, cfg.rope_theta, None, "blocks", (i,)
 
 
+# the matmuls of the aten graph under einsum: what ``remat="dots"`` saves,
+# as ``jax.checkpoint_policies.checkpoint_dots`` saves every dot_general
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default,
+                   torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: TransformerConfig, fn):
+    """``fn`` under ``cfg.remat``: as it is (``none``), saving only its
+    inputs and recomputing the rest in the backward pass (``full``), or
+    saving its matmul outputs too (``dots``)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _save_dots)
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=ctx)
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
 def _run(cfg: TransformerConfig, params, tokens, cache=None):
     """Embedding and every layer over the full sequence: (final hidden
-    states before the norm, aux); fills ``cache`` when it is given."""
+    states before the norm, aux); fills ``cache`` when it is given. Where
+    autograd records (training), each layer runs under ``_remat``, but
+    gemma's global layers, as in the JAX code."""
     s = tokens.shape[1]
     x = _embed(cfg, params, tokens)
     positions = torch.arange(s, device=x.device)
     aux_total = torch.zeros((), device=x.device)
+    remat = cache is None and torch.is_grad_enabled()
     for lp, moe, theta, window, stack, at in _layers(cfg, params):
-        x, aux, kv = _layer(cfg, lp, x, positions, window, moe=moe,
-                            theta=theta)
+        def layer(x, lp=lp, moe=moe, theta=theta, window=window):
+            return _layer(cfg, lp, x, positions, window, moe=moe,
+                          theta=theta)
+        if remat and stack != "global":
+            layer = _remat(cfg, layer)
+        x, aux, kv = layer(x)
         if aux is not None:
             aux_total = aux_total + aux
         if cache is None:
@@ -562,10 +631,16 @@ def _run(cfg: TransformerConfig, params, tokens, cache=None):
     return x, aux_total
 
 
-def forward(cfg: TransformerConfig, params, tokens):
-    """tokens (B,S) int → (logits (B,S,V), aux loss)."""
+def forward(cfg: TransformerConfig, params, tokens, *, return_hidden=False):
+    """tokens (B,S) int → (logits (B,S,V), aux loss).
+
+    ``return_hidden=True`` returns the final-norm hidden states instead of
+    logits: the chunked vocab loss fuses the unembedding into the loss, so
+    the (B,S,V) tensor never exists."""
     x, aux = _run(cfg, params, tokens)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    if return_hidden:
+        return x, aux
     return torch.einsum("bsd,dv->bsv", x, params["unembed"]), aux
 
 
@@ -719,3 +794,98 @@ def prefill(cfg: TransformerConfig, params, tokens, s_max: int, *,
         x = x[:, -1:]
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return torch.einsum("bsd,dv->bsv", x, params["unembed"]), cache
+
+
+# =============================================================================
+# Training step
+# =============================================================================
+
+def _chunk_xent(xc, lc, unembed):
+    """One block of positions: (summed next-token loss, positions counted),
+    labels -100 masked."""
+    lg = torch.einsum("bsd,dv->bsv", xc, unembed).float()
+    mask = lc >= 0
+    safe = torch.where(mask, lc, 0)
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, safe[..., None].long())[..., 0]
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def loss_fn(cfg: TransformerConfig, params, tokens):
+    """Next-token loss of ``tokens`` (B,S) under the weights as
+    ``forward`` reads them (``compute_dtypes`` of the masters):
+    (loss + router_aux_coef · aux, (loss, aux)).
+
+    With ``cfg.loss_chunk`` the labels are shifted, padded with -100 to a
+    multiple of the chunk, and each chunk's unembedding, logsumexp and
+    gold gather run under their own checkpoint: the (B,S,V) logits never
+    exist, in the forward or the backward pass."""
+    if cfg.loss_chunk:
+        x, aux = forward(cfg, params, tokens, return_hidden=True)
+        b, s, d = x.shape
+        labels = torch.cat([tokens[:, 1:].long(), torch.full(
+            (b, 1), -100, dtype=torch.long, device=tokens.device)], 1)
+        cs = cfg.loss_chunk
+        pad = (-s) % cs
+        if pad:
+            x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+            labels = torch.nn.functional.pad(labels, (0, pad), value=-100)
+        tot = torch.zeros((), device=x.device)
+        cnt = torch.zeros((), dtype=torch.long, device=x.device)
+        for i in range(0, s + pad, cs):
+            t, c = checkpoint(_chunk_xent, x[:, i:i + cs],
+                              labels[:, i:i + cs], params["unembed"],
+                              use_reentrant=False)
+            tot, cnt = tot + t, cnt + c
+        loss = tot / torch.clamp(cnt, min=1)
+    else:
+        logits, aux = forward(cfg, params, tokens)
+        loss = softmax_xent(logits[:, :-1], tokens[:, 1:])
+    return loss + cfg.router_aux_coef * aux, (loss, aux)
+
+
+def accumulate_grads(cfg: TransformerConfig, model: ParamTree, tokens):
+    """The gradient of the loss of ``tokens`` (B,S) into each master
+    weight's ``.grad``: over ``cfg.grad_accum`` microbatches of B/k rows,
+    summed then divided by k. Returns (loss, aux), each the microbatches'
+    mean, detached."""
+    k = cfg.grad_accum
+    b = tokens.shape[0]
+    mbs = tokens.reshape(k, b // k, -1) if k > 1 else tokens[None]
+    loss_sum = aux_sum = 0.0
+    for mb in mbs:
+        view = compute_dtypes(cfg, model.tree(lambda p: p))
+        total, (loss, aux) = loss_fn(cfg, view, mb)
+        total.backward()
+        del view, total
+        loss_sum = loss_sum + loss.detach()
+        aux_sum = aux_sum + aux.detach()
+    if k > 1:
+        with torch.no_grad():
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(k)
+        return loss_sum / k, aux_sum / k
+    return loss_sum, aux_sum
+
+
+def make_train_step(cfg: TransformerConfig, optimizer):
+    """Builds ``train_step(state, batch) -> (state, metrics)``.
+
+    ``state = {"params": ParamTree of trainable masters, "opt":
+    optimizer state, "step": int32}``; ``batch = {"tokens": (B, S)}``.
+    Gradients accumulate over ``cfg.grad_accum`` microbatches, then one
+    optimizer update writes the masters in place and ``step`` goes up by
+    one. Metrics: ``loss`` (the next-token loss) and ``aux_loss``."""
+
+    def train_step(state, batch):
+        model = state["params"]
+        loss, aux = accumulate_grads(cfg, model, batch["tokens"])
+        grads = model.tree(lambda p: p.grad if p.grad is not None
+                           else torch.zeros_like(p))
+        opt = optimizer.update(model.tree(), grads, state["opt"])[1]
+        model.zero_grad(set_to_none=True)
+        new_state = {"params": model, "opt": opt, "step": state["step"] + 1}
+        return new_state, {"loss": loss, "aux_loss": aux}
+
+    return train_step
