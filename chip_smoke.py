@@ -184,6 +184,29 @@ Phases (one JSON line each, plus the last lines described below):
    from it against the state in memory stepped on the same batch (loss
    within ``RESUME_LOSS_RTOL``).
 
+11. train-gnn — the GNN family (``models.gnn``, ``configs.*_cfg``,
+   ``data.sampler``; plain torch, no scan kernel): each architecture's
+   ``_smoke`` on the card; (a) ``train-gnn-f32-<arch>``: BASE widths at 2
+   layers or blocks in float32 on molecule cut to 8 graphs, every gradient
+   leaf on the card within ``F32_TOL`` of its largest magnitude of the same
+   model on the CPU, and the loss; (b) ``train-gnn-equivariance``:
+   EquiformerV2 at BASE width and depth, its output under a random
+   rotation and a translation of the positions, float32 within 2e-3 (the
+   JAX smoke's bound), bf16 reported; (c) ``train-gnn-remat-<arch>``:
+   gatedgcn and graphcast, remat full against none beside none against
+   none, float32 each leaf within ``F32_TOL``; (d)
+   ``train-gnn-<arch>-<shape>``: gatedgcn, dimenet, equiformer-v2 and
+   graphcast at BASE width and depth through their configs' train steps
+   (AdamW lr 1e-3, no weight decay) for 5 steps on full_graph_sm,
+   minibatch_lg (the sampler's 1,024 seeds × fanout (15, 10) over a
+   232,965-node graph of 114,615,892 uniform edges; ``train-gnn-sampler``
+   times the CSR and the sampling) and molecule; ogb_products is cut
+   (partition-parallel over a mesh only). Per run: every loss finite, step
+   ms (first; p50 after it), model TFLOP/s from the config's ``_flops`` and
+   its share of 989 (bf16) or 67 (float32) TFLOP/s, peak bytes, host input
+   seconds; the minibatch_lg run of each architecture also one step under
+   ``torch.profiler``.
+
 Then one ``scan-kernels`` line: per compiled plan, the NVRTC compile
 time, ptxas' report (registers, shared memory, spills), the resident
 blocks per SM, and the process's and disk cache's hits; for the ``all``
@@ -193,8 +216,8 @@ instructions (``cuobjdump -sass``). Then one
 line, and as the last line ``{"ok": true, "device": {...}}``. Any
 mismatch or exception exits nonzero before that line.
 
-``python3 chip_smoke.py --train-lm`` runs phase 10 alone, then the card's
-line. ``python3 chip_smoke.py --lm-init-witness`` runs none of that: it serves
+``python3 chip_smoke.py --train-lm`` runs phase 10 alone, and
+``--train-gnn`` phase 11 alone, then the card's line. ``python3 chip_smoke.py --lm-init-witness`` runs none of that: it serves
 Qwen2.5-14B at all 48 layers in float32 and in bf16, with the JAX init's
 weights as drawn and at fan-in scale, and prints for each the first
 layer's attention score statistics and the decode steps' agreement with
@@ -243,11 +266,18 @@ from repro_torch.kernels.fused_scan import ops as fops, ref as fref  # noqa
 from repro_torch.kernels.hll import ops as hops, ref as href  # noqa
 from repro_torch.kernels.qap_count import ops as qops, ref as qref  # noqa
 from repro_torch.configs import (LM_ARCHS, LM_SHAPES,  # noqa: E402
-                                 DIN_SHAPES, din_cfg, granite_moe_1b)
+                                 DIN_SHAPES, GNN_ARCHS, GNN_SHAPES, din_cfg,
+                                 equiformer_v2_cfg, granite_moe_1b)
+from repro_torch.configs import gnn_common  # noqa: E402
+from repro_torch.data import sampler  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.models import din as din_mod  # noqa: E402
+from repro_torch.models.gnn import (dimenet, equiformer_v2,  # noqa: E402
+                                    gatedgcn, graphcast)
+from repro_torch.models.gnn.common import (  # noqa: E402
+    GraphBatch, block_diagonal_batch, random_graph, to_device)
 from repro_torch.models import transformer as tf_mod  # noqa: E402
 from repro_torch.models.common import (ParamTree, apply_rope,  # noqa: E402
                                        rmsnorm, rope_freqs)
@@ -331,7 +361,7 @@ PROFILE_TOP = 12               # kernels listed from the profiled step
 SPLIT_REPS = 3                 # timed calls of each part of a layer
 # the profiled step's kernels by kind, from words in their lowercased
 # names (the first that matches; "elementwise" otherwise)
-KERNEL_KINDS = (("matmul", ("gemm", "xmma", "cutlass", "wgmma")),
+KERNEL_KINDS = (("matmul", ("gemm", "xmma", "cutlass", "wgmma", "nvjet")),
                 ("indexing", ("index", "scatter", "gather")),
                 ("sort", ("sort", "radix")),
                 ("copy or cast", ("copy",)),
@@ -2362,15 +2392,21 @@ def train_f32_check(cfg, device) -> dict:
 
 
 def profile_train_step(cfg, state, toks) -> dict:
-    """One train step under ``torch.profiler``: the card's busy share
-    (the union of kernel intervals over the wall) and the kernels with the
-    most device time."""
+    """One LM train step under ``torch.profiler`` (``profile_step``)."""
     step = tf_mod.make_train_step(cfg, AdamW(lr=3e-4))
+    return profile_step(
+        lambda: float(step(state, {"tokens": toks})[1]["loss"]))
+
+
+def profile_step(run) -> dict:
+    """``run()``, one train step ending in its loss on the host, under
+    ``torch.profiler``: the card's busy share (the union of kernel
+    intervals over the wall), its time by kind of kernel and the kernels
+    with the most device time."""
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        state, metrics = step(state, {"tokens": toks})
-        float(metrics["loss"])
+        run()
         wall_us = (time.perf_counter() - t) * 1e6
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -2608,6 +2644,417 @@ def phase_train_lm(smi: str, device="cuda") -> None:
     emit({"phase": "train-lm", "seconds": time.perf_counter() - t_phase})
 
 
+# -- 11. GNN training ------------------------------------------------------------
+
+# the four GNN architectures at BASE width and depth through their configs'
+# train steps, on three of GNN_SHAPES; ogb_products is cut (one of its
+# edge tensors at d 70-512 alone is 17-63 GB: the JAX package trains it
+# only partition-parallel over a mesh)
+GNN_RUN_SHAPES = ("full_graph_sm", "minibatch_lg", "molecule")
+GNN_STEPS = 5
+# minibatch_lg: the sampler's seeds and fanout over a reddit-scale graph
+MB_GRAPH_NODES = 232_965
+MB_GRAPH_EDGES = 114_615_892
+MB_SEEDS = 1024
+MB_FANOUT = (15, 10)
+# the float32 check (card against CPU), equivariance and remat run at
+# BASE widths on molecule cut to 8 graphs; the float32 check at a depth cut
+GNN_CHECK_GRAPHS = 8
+GNN_CHECK_DEPTH = 2
+GNN_REMAT_ARCHS = ("gatedgcn", "graphcast")
+# a gradient leaf is held to F32_TOL of its largest magnitude, or of this
+# share of the largest of all leaves where that is more (gnn_grad_errs)
+GNN_GRAD_FLOOR = 1e-3
+# remat full against none: within F32_TOL, or this many times the card's
+# own spread (none against none) where that is more
+GNN_REMAT_SPREAD = 4
+EQUIVARIANCE_TOL = 2e-3        # the JAX smoke's bound, float32
+GNN_MODELS = {"gatedgcn": (gatedgcn, gatedgcn.init_gatedgcn),
+              "dimenet": (dimenet, dimenet.init_dimenet),
+              "equiformer-v2": (equiformer_v2, equiformer_v2.init_equiformer),
+              "graphcast": (graphcast, graphcast.init_graphcast)}
+
+
+def gnn_config(arch: str, shape: str):
+    """The config an architecture trains ``shape`` with (graphcast: BASE
+    on every shape, as the JAX bundle)."""
+    module = GNN_ARCHS[arch]
+    if hasattr(module, "_cfg_for"):
+        return module._cfg_for(shape)
+    return module.BASE
+
+
+def gnn_layers(cfg) -> int:
+    return cfg.n_blocks if hasattr(cfg, "n_blocks") else cfg.n_layers
+
+
+def gnn_depth(cfg, n: int):
+    field = "n_blocks" if hasattr(cfg, "n_blocks") else "n_layers"
+    return dataclasses.replace(cfg, **{field: n})
+
+
+def gnn_init(arch: str, cfg, device):
+    """Seeded random weights of ``cfg`` on ``device`` (the JAX init;
+    GraphCast's processor rescaled by ``residual_scale``)."""
+    model = GNN_MODELS[arch][1](
+        cfg, torch.Generator(device).manual_seed(MODEL_SEED))[0]
+    if arch == "graphcast":
+        residual_scale(cfg, model)
+    return model
+
+
+def residual_scale(cfg, model) -> None:
+    """GraphCast's interaction layers with their residual branches (the
+    last layer of each edge and node MLP) at 1/L of the JAX init's scale.
+    As drawn, each of BASE's 16 layers multiplies the mesh state ~10-20×
+    on a mesh of 16-62 edges a node, and the loss overflows float32 in
+    both packages (``tests/test_torch_gnn_train.py::test_jax_init_makes_
+    base_graphcast_overflow_in_both_packages``; max |prediction| 4.4e21
+    on full_graph_sm, 48 so scaled)."""
+    with torch.no_grad():
+        for k in ("proc_edge", "proc_node"):
+            model[k][-1]["w"].mul_(1.0 / cfg.n_layers)
+
+
+def gnn_loss(arch: str, cfg, model, batch):
+    m = GNN_MODELS[arch][0]
+    if arch == "dimenet":
+        return m.loss_fn(cfg, model, *batch)
+    return m.loss_fn(cfg, model, batch)
+
+
+def sampled_minibatch(rng) -> tuple:
+    """minibatch_lg's input: a CSR (``repro_torch.data.sampler``) over
+    ``MB_GRAPH_NODES`` nodes and ``MB_GRAPH_EDGES`` uniform edges,
+    ``MB_SEEDS`` seeds sampled with fanout ``MB_FANOUT``, and the sampled
+    nodes' features, labels and positions gathered from per-node tables;
+    the loss on the seeds. The edges are drawn grouped by source (a
+    multinomial count a node, then uniform destinations): the distribution
+    of independent uniform edges, in an order the CSR's stable argsort
+    passes over once (in a random order the sort took 32.6 s of this
+    function's 36.4 s on the host of an H100 machine; 2.3 s so). Returns
+    the ``GraphBatch`` (numpy) and the host seconds of each part."""
+    info = GNN_SHAPES["minibatch_lg"]
+    n = MB_GRAPH_NODES
+    t = time.perf_counter()
+    counts = rng.multinomial(MB_GRAPH_EDGES, np.full(n, 1.0 / n))
+    src = np.repeat(np.arange(n, dtype=np.int32), counts)
+    dst = rng.integers(0, n, MB_GRAPH_EDGES, dtype=np.int32)
+    edges_s = time.perf_counter() - t
+    t = time.perf_counter()
+    graph = sampler.CSRGraph.from_edges(src, dst, n)
+    csr_s = time.perf_counter() - t
+    del src, dst
+    t = time.perf_counter()
+    seeds = rng.choice(n, MB_SEEDS, replace=False)
+    sub = sampler.sample_subgraph(graph, seeds, MB_FANOUT, rng)
+    sample_s = time.perf_counter() - t
+    n_sub = len(sub.node_ids)
+    check((n_sub, len(sub.src)) == (info["n_nodes"], info["n_edges"]),
+          f"sampled subgraph {n_sub} nodes, {len(sub.src)} edges")
+    del graph
+    t = time.perf_counter()
+    feats = rng.standard_normal((n, info["d_feat"]), dtype=np.float32)
+    labels = rng.integers(0, info["n_classes"], n).astype(np.int32)
+    pos = rng.standard_normal((n, 3), dtype=np.float32)
+    mask = np.zeros((n_sub,), np.float32)
+    mask[:sub.n_seeds] = 1.0
+    batch = GraphBatch(
+        node_feat=feats[sub.node_ids], src=sub.src, dst=sub.dst,
+        n_nodes=n_sub, positions=pos[sub.node_ids],
+        labels=labels[sub.node_ids], label_mask=mask)
+    features_s = time.perf_counter() - t
+    return batch, {"graph_nodes": n, "graph_edges": MB_GRAPH_EDGES,
+                   "seeds": MB_SEEDS, "fanout": list(MB_FANOUT),
+                   "sub_nodes": n_sub, "sub_edges": len(sub.src),
+                   "edges_s": edges_s, "csr_s": csr_s, "sample_s": sample_s,
+                   "features_s": features_s}
+
+
+def gnn_batch(arch: str, shape: str, cfg, rng, minibatch, device):
+    """The input of ``arch`` on ``shape``, on ``device``, and the host
+    seconds of what was made for this run."""
+    info = GNN_SHAPES[shape]
+    host = {}
+    t = time.perf_counter()
+    if arch == "graphcast":       # the shape's nodes are the grid
+        batch = graphcast.synth_batch(cfg, info["n_nodes"], info["n_edges"],
+                                      rng)
+    elif shape == "minibatch_lg":
+        batch = minibatch
+    elif shape == "molecule":
+        batch = block_diagonal_batch(info["n_graphs"], 30, 64,
+                                     info["d_feat"], rng, n_classes=1,
+                                     with_pos=True)
+    else:
+        batch = random_graph(info["n_nodes"], info["n_edges"],
+                             info["d_feat"], rng,
+                             n_classes=info["n_classes"], with_pos=True)
+    host["batch_s"] = time.perf_counter() - t
+    tri = None
+    if arch == "dimenet":
+        t = time.perf_counter()
+        tri = dimenet.build_triplets(batch.src, batch.dst,
+                                     cfg.max_in_per_edge)
+        host["triplets_s"] = time.perf_counter() - t
+        host["triplets"] = int(tri[2].sum())
+        host["triplet_slots"] = len(tri[2])
+    t = time.perf_counter()
+    out = to_device(batch, device)
+    if tri is not None:
+        out = (out, dimenet.triplets_to_device(tri, device))
+    host["to_device_s"] = time.perf_counter() - t
+    return out, host
+
+
+def gnn_train_run(arch: str, shape: str, smi: str, minibatch, device,
+                  profile: bool) -> dict:
+    """``arch`` at ``gnn_config(arch, shape)`` (BASE width and depth)
+    through its config's train step for ``GNN_STEPS`` steps: every loss
+    finite; step ms (p50 over the steps after the first, host clock ending
+    in the loss on the host), model TFLOP/s from the config's ``_flops``
+    and its share of the dtype's peak, peak bytes, host input seconds; with
+    ``profile``, one more step under ``torch.profiler``."""
+    module = GNN_ARCHS[arch]
+    cfg = gnn_config(arch, shape)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    batch, host = gnn_batch(arch, shape, cfg,
+                            np.random.default_rng(MODEL_SEED), minibatch,
+                            device)
+    t = time.perf_counter()
+    model = gnn_init(arch, cfg, device)
+    state = gnn_common.gnn_train_state(model)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    step = module.train_step(cfg)
+    losses, ms = [], []
+    for _ in range(GNN_STEPS):
+        t = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"].item())
+        ms.append((time.perf_counter() - t) * 1e3)
+    check(all(math.isfinite(x) for x in losses),
+          f"{arch} {shape}: every loss finite ({losses})")
+    p50 = float(np.median(ms[1:]))
+    flops = module._flops(shape)["model_flops"]
+    bf16 = cfg.dtype == torch.bfloat16
+    peak = train_mod.H100_BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S
+    res = {"arch": arch, "shape": shape, "dtype": str(cfg.dtype),
+           "params": cfg.num_params(), "remat": cfg.remat,
+           "depth": gnn_layers(cfg),
+           "width": cfg.d_hidden, "steps": GNN_STEPS, "losses": losses,
+           "step_ms": ms, "step_ms_first": ms[0], "step_ms_p50": p50,
+           "model_flops_per_step": flops,
+           "model_tflops_per_s": flops / p50 / 1e9,
+           "peak_flops_per_s": peak,
+           "share_of_peak": flops / (p50 / 1e3) / peak,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "init_s": init_s, "host": host, "card": smi}
+    if arch == "equiformer-v2":
+        res["edge_chunks"] = cfg.edge_chunks
+    if arch == "dimenet":
+        res["triplet_cap"] = cfg.max_in_per_edge
+    if arch == "graphcast":
+        res["grid"] = GNN_SHAPES[shape]["n_nodes"]
+        res["mesh"] = cfg.n_mesh(GNN_SHAPES[shape]["n_nodes"])
+    if profile:
+        res["profile"] = profile_step(
+            lambda: step(state, batch)[1]["loss"].item())
+    del state, model, batch
+    _free()
+    return res
+
+
+def gnn_check_batch(arch: str, cfg, device):
+    """molecule cut to ``GNN_CHECK_GRAPHS`` graphs (graphcast: a grid and
+    mesh edges of the same counts), on ``device``."""
+    rng = np.random.default_rng(MODEL_SEED)
+    info = GNN_SHAPES["molecule"]
+    n = GNN_CHECK_GRAPHS
+    if arch == "graphcast":
+        b = graphcast.synth_batch(cfg, n * 30, n * 64, rng)
+        return to_device(b, device)
+    b = block_diagonal_batch(n, 30, 64, info["d_feat"], rng, n_classes=1,
+                             with_pos=True)
+    if arch == "dimenet":
+        tri = dimenet.build_triplets(b.src, b.dst, cfg.max_in_per_edge)
+        return (to_device(b, device),
+                dimenet.triplets_to_device(tri, device))
+    return to_device(b, device)
+
+
+def gnn_grad_errs(got: dict, want: dict) -> dict:
+    """Each leaf's max |got - want| over its largest magnitude, or over
+    ``GNN_GRAD_FLOOR`` of the largest of all leaves where that is more: a
+    leaf whose gradient is zero in exact arithmetic (EquiformerV2's last
+    attention bias: each node's softmax ignores it) holds float32 noise
+    on both sides."""
+    floor = GNN_GRAD_FLOOR * max(float(w.abs().max()) for w in want.values())
+    return {n: float((got[n] - w.to(got[n].device)).abs().max())
+            / max(float(w.abs().max()), floor, 1e-30)
+            for n, w in want.items()}
+
+
+def gnn_grads(arch: str, cfg, model, batch) -> tuple[dict, float]:
+    """One backward pass: {name: gradient} and the loss."""
+    loss = gnn_loss(arch, cfg, model, batch)
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return grads, loss.item()
+
+
+def gnn_f32_check(arch: str, device) -> dict:
+    """BASE widths at ``GNN_CHECK_DEPTH`` layers or blocks in float32 on
+    the molecule cut: every gradient leaf on the card within ``F32_TOL``
+    of its largest magnitude of the same model on the CPU with the same
+    weights, and the loss."""
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "float32 matmuls stay float32 (TF32 off)")
+    cfg = dataclasses.replace(gnn_depth(gnn_config(arch, "molecule"),
+                                        GNN_CHECK_DEPTH),
+                              dtype=torch.float32)
+    host = gnn_init(arch, cfg, "cpu")
+    card = ParamTree(host.tree(lambda p: p.detach().clone()),
+                     requires_grad=True).to(device)
+    t = time.perf_counter()
+    got, loss_g = gnn_grads(arch, cfg, card, gnn_check_batch(arch, cfg,
+                                                             device))
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    want, loss_c = gnn_grads(arch, cfg, host, gnn_check_batch(arch, cfg,
+                                                              "cpu"))
+    host_s = time.perf_counter() - t
+    errs = gnn_grad_errs(got, want)
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= F32_TOL, f"{arch} float32 gradients on the card "
+          f"within {F32_TOL} of the CPU (worst {worst}: {errs[worst]})")
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    check(loss_err <= F32_TOL, f"{arch} float32 loss on the card "
+          f"({loss_g}) equals the CPU's ({loss_c})")
+    check(all(bool(torch.isfinite(g).all()) for g in got.values()),
+          f"{arch}: finite gradients on the card")
+    return {"depth": GNN_CHECK_DEPTH, "graphs": GNN_CHECK_GRAPHS,
+            "params": cfg.num_params(), "loss": loss_g,
+            "loss_rel_err": loss_err, "grad_leaves": len(errs),
+            "grad_max_rel_err": errs[worst], "worst_leaf": worst,
+            "leaves_under_floor": sorted(
+                n for n, w in want.items() if float(w.abs().max())
+                < GNN_GRAD_FLOOR * max(float(v.abs().max())
+                                       for v in want.values())),
+            "tol": F32_TOL, "floor": GNN_GRAD_FLOOR, "card_s": card_s,
+            "host_s": host_s}
+
+
+def gnn_equivariance(device) -> dict:
+    """EquiformerV2 at BASE width and depth on the molecule cut: the
+    output under a random rotation and under a translation of the
+    positions, against the output as it is (max |Δ| over max |out|):
+    float32 within ``EQUIVARIANCE_TOL``; bf16 reported."""
+    base = equiformer_v2_cfg._cfg_for("molecule")
+    rng = np.random.default_rng(MODEL_SEED)
+    b = block_diagonal_batch(GNN_CHECK_GRAPHS, 30, 64, base.d_feat, rng,
+                             n_classes=1, with_pos=True)
+    A = rng.normal(size=(3, 3))
+    Q, _ = np.linalg.qr(A)
+    Q = Q * np.sign(np.linalg.det(Q))
+    moved = {"rotation": (b.positions @ Q.T).astype(np.float32),
+             "translation": b.positions + np.float32([1.0, -2.0, 3.0])}
+    out = {}
+    for label, dt in (("float32", torch.float32), ("bf16", torch.bfloat16)):
+        cfg = dataclasses.replace(base, dtype=dt)
+        model = gnn_init("equiformer-v2", cfg, device)
+        with torch.no_grad():
+            ref = equiformer_v2.forward(cfg, model, to_device(b, device))
+            errs = {}
+            for k, pos in moved.items():
+                o = equiformer_v2.forward(cfg, model, to_device(
+                    dataclasses.replace(b, positions=pos), device))
+                errs[k] = float((o - ref).abs().max().float()
+                                / (ref.abs().max().float() + 1e-9))
+        out[label] = errs
+        del model
+    for k, e in out["float32"].items():
+        check(e < EQUIVARIANCE_TOL, f"equiformer-v2 float32 {k} "
+              f"invariance {e} < {EQUIVARIANCE_TOL}")
+    _free()
+    return {"layers": base.n_layers, "graphs": GNN_CHECK_GRAPHS,
+            "tol": EQUIVARIANCE_TOL, **out}
+
+
+def gnn_remat_check(arch: str, device) -> dict:
+    """One backward pass with remat ``full`` against ``none`` at BASE
+    width and depth in float32 on the molecule cut, beside a second
+    ``none`` run (the card's own spread: ``index_add_`` adds in varying
+    order): remat must add nothing beyond it, each leaf within
+    ``F32_TOL`` or ``GNN_REMAT_SPREAD`` times the spread, whichever is
+    more."""
+    cfg = dataclasses.replace(gnn_config(arch, "molecule"),
+                              dtype=torch.float32)
+    model = gnn_init(arch, cfg, device)
+    batch = gnn_check_batch(arch, cfg, device)
+    runs = {r: gnn_grads(arch, dataclasses.replace(
+        cfg, remat=r.split("_")[0]), model, batch)[0]
+        for r in ("none", "full", "none_again")}
+    want = runs["none"]
+    errs = {k: gnn_grad_errs(runs[k], want) for k in ("full", "none_again")}
+    worst = {k: max(e, key=e.get) for k, e in errs.items()}
+    leaf = {k: errs[k][worst[k]] for k in errs}
+    bound = max(F32_TOL, GNN_REMAT_SPREAD * leaf["none_again"])
+    check(leaf["full"] <= bound, f"{arch} float32 remat full within "
+          f"{bound} of none ({leaf['full']}, {worst['full']})")
+    del model, runs, want
+    _free()
+    return {"depth": gnn_layers(cfg), "graphs": GNN_CHECK_GRAPHS,
+            "tol": F32_TOL, "spread_factor": GNN_REMAT_SPREAD,
+            "full_vs_none_leaf_max_rel_err": leaf["full"],
+            "full_vs_none_worst_leaf": worst["full"],
+            "none_vs_none_leaf_max_rel_err": leaf["none_again"],
+            "none_vs_none_worst_leaf": worst["none_again"]}
+
+
+def phase_train_gnn(smi: str, device="cuda") -> None:
+    """Phase 11: the GNN family of ``repro_torch`` (``models.gnn``,
+    ``configs.*_cfg.train_step``; plain torch, no scan kernel)."""
+    t_phase = time.perf_counter()
+    t = time.perf_counter()
+    emit({"phase": "train-gnn-smoke", "card": smi,
+          **{arch: module._smoke(device)
+             for arch, module in GNN_ARCHS.items()},
+          "seconds": time.perf_counter() - t})
+    for arch in GNN_ARCHS:
+        t = time.perf_counter()
+        emit({"phase": f"train-gnn-f32-{arch}", "card": smi,
+              **gnn_f32_check(arch, device),
+              "seconds": time.perf_counter() - t})
+    t = time.perf_counter()
+    emit({"phase": "train-gnn-equivariance", "card": smi,
+          **gnn_equivariance(device), "seconds": time.perf_counter() - t})
+    for arch in GNN_REMAT_ARCHS:
+        t = time.perf_counter()
+        emit({"phase": f"train-gnn-remat-{arch}", "card": smi,
+              **gnn_remat_check(arch, device),
+              "seconds": time.perf_counter() - t})
+    t = time.perf_counter()
+    minibatch, host = sampled_minibatch(np.random.default_rng(MODEL_SEED))
+    emit({"phase": "train-gnn-sampler", **host,
+          "seconds": time.perf_counter() - t})
+    for arch in GNN_ARCHS:
+        for shape in GNN_RUN_SHAPES:
+            t = time.perf_counter()
+            emit({"phase": f"train-gnn-{arch}-{shape}", **gnn_train_run(
+                arch, shape, smi, minibatch, device,
+                profile=shape == "minibatch_lg"),
+                "seconds": time.perf_counter() - t})
+    del minibatch
+    _free()
+    emit({"phase": "train-gnn", "shapes": list(GNN_RUN_SHAPES),
+          "cut": {"ogb_products": "partition-parallel over a mesh only "
+                  "(ROADMAP A8.3)"},
+          "seconds": time.perf_counter() - t_phase})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2755,6 +3202,7 @@ def main() -> int:
     phase_models_lm(smi)
     phase_models_din(smi)
     phase_train_lm(smi)
+    phase_train_gnn(smi)
     check(K.LAUNCHES == before, "the model phases launch no scan kernel")
 
     phase_scan_kernels(scan_kernel_labels(all_plan, paper_plan, cover_plan,
@@ -2783,13 +3231,16 @@ def main() -> int:
     return 0
 
 
-def train_only() -> int:
-    """``--train-lm``: phase 10 alone, then the card's line."""
+def train_only(phase) -> int:
+    """``--train-lm`` (phase 10) or ``--train-gnn`` (phase 11): that phase
+    alone, held to launch no scan kernel, then the card's line."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     smi = train_mod.card_line()
-    phase_train_lm(smi)
+    before = dict(K.LAUNCHES)
+    phase(smi)
+    check(K.LAUNCHES == before, "the training phase launches no scan kernel")
     print(smi, flush=True)
     return 0
 
@@ -2800,5 +3251,7 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--lm-init-witness"]:
         sys.exit(lm_init_witness())
     if sys.argv[1:] == ["--train-lm"]:
-        sys.exit(train_only())
+        sys.exit(train_only(phase_train_lm))
+    if sys.argv[1:] == ["--train-gnn"]:
+        sys.exit(train_only(phase_train_gnn))
     sys.exit(main())

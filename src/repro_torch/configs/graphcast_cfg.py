@@ -1,0 +1,54 @@
+"""graphcast [gnn]: 16L d_hidden=512 mesh_refinement=6 n_vars=227,
+encoder-processor-decoder mesh GNN [arXiv:2212.12794]."""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..models.common import require_device
+from ..models.gnn import graphcast as M
+from ..models.gnn.common import to_device
+from .gnn_common import gnn_flops_info, gnn_train_step
+
+BASE = M.GraphCastConfig(n_layers=16, d_hidden=512, n_vars=227,
+                         remat="full", dtype=torch.bfloat16)
+SMOKE = dataclasses.replace(BASE, n_layers=3, d_hidden=32, n_vars=11,
+                            remat="none", dtype=torch.float32)
+
+
+def train_step(cfg: M.GraphCastConfig):
+    """The single-device train step of the JAX ``_bundle`` at ``cfg``:
+    ``step(state, batch)`` with a ``GraphCastBatch`` of tensors. The JAX
+    bundle trains ``BASE`` on every shape: the shape's nodes are the grid,
+    its edges the processor's mesh edges."""
+    return gnn_train_step(lambda p, b: M.loss_fn(cfg, p, b))
+
+
+def _smoke(device="cuda"):
+    device = require_device(device)
+    rng = np.random.default_rng(2)
+    params, _ = M.init_graphcast(SMOKE,
+                                 torch.Generator(device).manual_seed(0))
+    b = to_device(M.synth_batch(SMOKE, n_grid=256, n_mesh_edges=128,
+                                rng=rng), device)
+    with torch.no_grad():
+        pred = M.forward(SMOKE, params, b)
+    assert pred.shape == (256, SMOKE.n_vars)
+    assert not bool(torch.isnan(pred).any())
+    loss = M.loss_fn(SMOKE, params, b)
+    loss.backward()
+    assert np.isfinite(loss.item())
+    assert all(bool(torch.isfinite(p.grad).all())
+               for p in params.parameters())
+    return {"loss": loss.item()}
+
+
+def _flops(shape_name: str) -> dict:
+    cfg = BASE
+    d, L = cfg.d_hidden, cfg.n_layers
+    per_edge = 2 * L * (3 * d) * d * 2           # edge MLP (3d→d→d)
+    per_node = 2 * (cfg.n_vars * d + L * (2 * d) * d * 2 + 2 * d * d)
+    return gnn_flops_info(shape_name, per_node, per_edge,
+                          cfg.num_params(), scan_factor=cfg.n_layers)

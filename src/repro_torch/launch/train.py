@@ -28,6 +28,7 @@ import torch
 from ..checkpoint import CheckpointManager
 from ..configs import lm_config
 from ..models import transformer as tf
+from ..models.common import require_device
 from ..models.convert import train_state_from_numpy, train_state_to_numpy
 from ..optim import AdamW, cosine_schedule
 
@@ -68,11 +69,7 @@ def train(cfg, *, steps: int, batch: int = 8, seq: int = 128,
     ``ckpt_every`` steps (async) and at the end. Returns the final state
     and, for each step run, its loss, aux loss and milliseconds (host
     clock, ending in a synchronize), with the peak bytes on a card."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested, but no CUDA card is "
-                           "available (pass --device cpu to train on the "
-                           "host)")
+    device = require_device(device)
     label = label or cfg.name
     model, _ = tf.init_transformer(
         cfg, torch.Generator(device).manual_seed(0), trainable=True)

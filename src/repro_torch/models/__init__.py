@@ -1,2 +1,2 @@
 """Model zoo of the port: the LM transformers and DIN (serving), and the
-GNN substrate DIN shares."""
+GNN family (``models.gnn``, trained)."""

@@ -65,6 +65,17 @@ def _as_tree(m, fn):
     return [_as_tree(x, fn) for x in m]
 
 
+def require_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device where there is no
+    card fails, naming it: nothing falls back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested, but no CUDA card is "
+                           "available (pass --device cpu, or device='cpu', "
+                           "to run on the host)")
+    return device
+
+
 def normal(rng, shape, scale, dtype):
     """``scale`` × a standard normal draw from generator ``rng`` (on its
     device), cast to ``dtype``; ``rng=None`` gives an empty tensor on the

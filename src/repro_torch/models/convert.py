@@ -9,7 +9,8 @@ pairs. The port's modules hold one ``ParamTree`` per layer instead. bfloat16
 arrays (numpy's ``bfloat16`` extension dtype) are reinterpreted bit for bit.
 A train state, ``{"params", "opt": {"m", "v", "count"}, "step"}``, goes to
 numpy in the JAX layout, so that either package's ``CheckpointManager``
-writes the same keys and a checkpoint resumes in the other. Imports no JAX.
+writes the same keys and a checkpoint resumes in the other. The GNNs keep
+the JAX layer stacks (``gnn_from_numpy``). Imports no JAX.
 """
 from __future__ import annotations
 
@@ -152,6 +153,43 @@ def din_from_numpy(cfg: DINConfig, tree: dict, device="cuda") -> ParamTree:
         "attn": layers(tree["attn"]),
         "final": layers(tree["final"]),
     })
+
+
+def gnn_from_numpy(cfg, tree: dict, device="cuda") -> ParamTree:
+    """The port's GNN (gatedgcn, dimenet, equiformer-v2 or graphcast) from
+    a JAX parameter tree of numpy arrays, trainable, sharing no memory
+    with the arrays (training writes it in place). The layer stacks stay
+    stacked (``layers/*``, ``blocks/*``, ``proc_edge``: L leading), and the
+    models index them layer by layer; each MLP's list of ``(w, b)`` pairs
+    becomes a list of ``{"w", "b"}`` layers."""
+    del cfg  # the structure follows from the tree
+
+    def convert(x):
+        if isinstance(x, dict):
+            return {k: convert(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [{"w": convert(w), "b": convert(b)} for w, b in x]
+        return tensor_from_numpy(x, device).clone()
+    return ParamTree(convert(tree), requires_grad=True)
+
+
+def gnn_to_numpy(cfg, tree) -> dict:
+    """A port GNN tree (a ``ParamTree``, or a tree shaped like one: its
+    gradients, its optimizer moments) as the JAX parameter tree of numpy
+    arrays (MLPs as lists of ``(w, b)`` pairs), bfloat16 as float32: the
+    inverse of ``gnn_from_numpy``."""
+    del cfg
+    if isinstance(tree, ParamTree):
+        tree = tree.tree()
+
+    def convert(x):
+        if isinstance(x, dict):
+            return {k: convert(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [(convert(layer["w"]), convert(layer["b"]))
+                    for layer in x]
+        return tensor_to_numpy(x)
+    return convert(tree)
 
 
 def cache_from_numpy(cfg: TransformerConfig, cache: dict,

@@ -10,12 +10,16 @@ and give the JAX package's arrays from the same generator.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
 import torch
+from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ...tree import tree_map
 from .. import common
 
 
@@ -33,6 +37,41 @@ class GraphBatch:
     label_mask: Any | None = None
     graph_id: Any | None = None
     n_graphs: int = 1
+
+
+def to_device(batch, device):
+    """A batch of numpy arrays (a ``GraphBatch``, or any dataclass of
+    arrays and counts) as tensors on ``device``: integer arrays as int64,
+    torch's index dtype; counts and ``None`` stay as they are."""
+    def tensor(a):
+        if not isinstance(a, np.ndarray):
+            return a
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return (t.long() if not t.dtype.is_floating_point else t).to(device)
+    return dataclasses.replace(batch, **{
+        f.name: tensor(getattr(batch, f.name))
+        for f in dataclasses.fields(batch)})
+
+
+def layer_of(tree, i: int):
+    """Layer ``i`` of a subtree whose leaves all lead with a layer dim (a
+    ``ParamTree``, a list of them, or dicts and lists of tensors): the same
+    structure of views, through which gradients reach the stacked
+    weights."""
+    if isinstance(tree, common.ParamTree):
+        tree = tree.tree(lambda p: p)
+    elif isinstance(tree, nn.ModuleList):
+        return [layer_of(x, i) for x in tree]
+    return tree_map(lambda t: t[i], tree)
+
+
+def remat(mode: str, fn):
+    """``fn`` as it is (``"none"``), or saving only its inputs and
+    recomputing the rest in the backward pass (``"full"``, the JAX code's
+    ``jax.checkpoint``)."""
+    if mode == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    return fn
 
 
 def gather_src(h, src):

@@ -467,7 +467,14 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, repro_torch.models.transformer, "
             "repro_torch.models.din, repro_torch.models.convert, "
             "repro_torch.launch.serve, repro_torch.configs, "
-            "repro_torch.models.gnn.common, repro_torch.dist.sharding\n"
+            "repro_torch.models.gnn.common, repro_torch.dist.sharding, "
+            "repro_torch.models.gnn.gatedgcn, repro_torch.models.gnn.dimenet, "
+            "repro_torch.models.gnn.equiformer_v2, "
+            "repro_torch.models.gnn.graphcast, repro_torch.models.gnn.wigner, "
+            "repro_torch.data.sampler, repro_torch.configs.gnn_common, "
+            "repro_torch.configs.gatedgcn_cfg, repro_torch.configs.dimenet_cfg, "
+            "repro_torch.configs.equiformer_v2_cfg, "
+            "repro_torch.configs.graphcast_cfg\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.'))\n"
