@@ -197,7 +197,7 @@ Phases (one JSON line each, plus the last lines described below):
    none, float32 each leaf within ``F32_TOL``; (d)
    ``train-gnn-<arch>-<shape>``: gatedgcn, dimenet, equiformer-v2 and
    graphcast at BASE width and depth through their configs' train steps
-   (AdamW lr 1e-3, no weight decay) for 5 steps on full_graph_sm,
+   (AdamW lr 1e-3, no weight decay) for 3 steps on full_graph_sm,
    minibatch_lg (the sampler's 1,024 seeds × fanout (15, 10) over a
    232,965-node graph of 114,615,892 uniform edges; ``train-gnn-sampler``
    times the CSR and the sampling) and molecule; ogb_products is cut
@@ -206,6 +206,39 @@ Phases (one JSON line each, plus the last lines described below):
    its share of 989 (bf16) or 67 (float32) TFLOP/s, peak bytes, host input
    seconds; the minibatch_lg run of each architecture also one step under
    ``torch.profiler``.
+
+12. mesh-models — the models sharded over four ``gloo`` ranks sharing
+   the card (child processes of ``chip_smoke.py --mesh-models-rank``), on
+   a (data 2, model 2) ``make_host_mesh`` with ``ShardingPolicy(fsdp=True)``
+   (``dist.sharding``, ``dist.collectives``; plain torch, no scan kernel):
+   (a) ``mesh-models-granite``: granite-moe-1b-a400m at its published
+   width and depth (24 layers, d_model 1024, 32 experts top-8, 16 a model
+   rank) in float32 at a capacity of E/top_k (no drops): a forward of 2 ×
+   4,096 tokens, a prefill of 4,096 positions (the cache's sequence
+   sharded over "model") and 8 decode steps, each held to the same on one
+   rank with the mesh's MoE routes replayed (``replayed_routes``; a route
+   the one rank would pick otherwise must be a near-tie,
+   ``MM_ROUTE_GAP``), relative L2 ``MM_REL_L2``; 3 float32 AdamW steps at
+   batch 4 × 4,096 (train_4k's 256 cut) against one rank's with
+   ``grad_accum`` doubled: the first step (its routes replayed too) in
+   loss and aux within ``MM_LOSS_RTOL`` and in the moments after it,
+   every leaf gathered on the host, within tests/test_torch_train.py's
+   tolerances; the later steps' losses reported (Adam's sign steps on
+   gradients that tie to the last bits part the weights); one bf16 step
+   at the config's capacity 1.25 for its time. Per rank: each call's ms beside the ms in
+   the model's collectives, peak bytes. (b) ``mesh-models-psum``:
+   ``compressed_psum`` on card tensors over the four ranks (one call
+   within 5%, twenty closer). (c) ``mesh-models-checkpoint``: part of the
+   trained state saved from (2, 2), restored onto (1, 4) and onto one
+   rank, bit for bit. (d) ``mesh-models-<arch>-<config>-<shape>``: the
+   partition-parallel (cd-0) step of DimeNet and GraphCast on
+   full_graph_sm and EquiformerV2 on minibatch_lg's shape (169,984
+   nodes, 168,960 uniform edges), each graph in four contiguous blocks,
+   cut edges dropped: float32 at BASE for DimeNet and GraphCast, 3 AdamW
+   steps, the first held to each block's loss run on one rank and
+   averaged (loss and first moment); EquiformerV2 in float32 at
+   ``EQ_CHECK_LAYERS`` layers for that check, then 3 steps at BASE (bf16).
+   ``ogb_products`` stays cut: one card holds every partition.
 
 Then one ``scan-kernels`` line: per compiled plan, the NVRTC compile
 time, ptxas' report (registers, shared memory, spills), the resident
@@ -216,8 +249,9 @@ instructions (``cuobjdump -sass``). Then one
 line, and as the last line ``{"ok": true, "device": {...}}``. Any
 mismatch or exception exits nonzero before that line.
 
-``python3 chip_smoke.py --train-lm`` runs phase 10 alone, and
-``--train-gnn`` phase 11 alone, then the card's line. ``python3 chip_smoke.py --lm-init-witness`` runs none of that: it serves
+``python3 chip_smoke.py --train-lm`` runs phase 10 alone,
+``--train-gnn`` phase 11 alone and ``--mesh-models`` phase 12 alone, then
+the card's line. ``python3 chip_smoke.py --lm-init-witness`` runs none of that: it serves
 Qwen2.5-14B at all 48 layers in float32 and in bf16, with the JAX init's
 weights as drawn and at fan-in scale, and prints for each the first
 layer's attention score statistics and the decode steps' agreement with
@@ -262,6 +296,10 @@ from repro_torch.core.metrics import (  # noqa: E402
 from repro_torch.core.planner import plan, plan_single  # noqa: E402
 from repro_torch.kernels import _build, scan_codegen  # noqa: E402
 from repro_torch.dist import ChunkScheduler, FaultInjector, WorkerFailure  # noqa
+from repro_torch.dist import collectives as mm_coll  # noqa: E402
+from repro_torch.dist import compressed_psum  # noqa: E402
+from repro_torch.dist.sharding import (ShardingPolicy,  # noqa: E402
+                                       distribute_tree)
 from repro_torch.kernels.fused_scan import ops as fops, ref as fref  # noqa
 from repro_torch.kernels.hll import ops as hops, ref as href  # noqa
 from repro_torch.kernels.qap_count import ops as qops, ref as qref  # noqa
@@ -282,7 +320,7 @@ from repro_torch.models import transformer as tf_mod  # noqa: E402
 from repro_torch.models.common import (ParamTree, apply_rope,  # noqa: E402
                                        rmsnorm, rope_freqs)
 from repro_torch.optim import AdamW, cosine_schedule  # noqa: E402
-from repro_torch.tree import tree_leaves  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.rdf import bsbm_ntriples, synth_encoded  # noqa: E402
 from repro_torch.rdf import ingest as rdf_ingest  # noqa: E402
 from repro_torch.rdf.triple_tensor import TripleTensor  # noqa: E402
@@ -347,8 +385,9 @@ DIN_REQUESTS = {"serve_p99": 20, "serve_bulk": 5, "retrieval_cand": 3}
 DIN_RETRIEVAL_CANDS = 250_000
 F32_FLOPS_PER_S = 67e12        # float32 outside the tensor cores (SXM)
 # phase 10, the training path: granite FULL at train_4k's sequence, the
-# batch cut from 256 to 8 to fit one card (LM_SHAPES["train_4k"])
-TRAIN_STEPS = 8
+# batch cut from 256 to 8 to fit one card (LM_SHAPES["train_4k"]); five
+# steps keep the script within its time limit beside phase 12
+TRAIN_STEPS = 5
 TRAIN_BATCH = 8
 TRAIN_SEQ = 4096
 TRAIN_CHECK_TOKENS = 32        # batch 1: the float32 card-vs-CPU gradients
@@ -1945,22 +1984,63 @@ def no_drop(cfg):
 
 
 @contextlib.contextmanager
-def recorded_routes(into: list):
-    """Append each MoE dispatch's expert sets, (T, top_k) sorted, to
-    ``into`` while the block runs (the router as ``_moe_dispatch_local``
-    computes it)."""
-    dispatch = tf_mod._moe_dispatch_local
+def recorded_routes(into: list, sort: bool = True):
+    """Append each MoE routing's experts, (T, top_k), to ``into`` while
+    the block runs (sorted: the expert sets; else in the router's order,
+    as uint8 on the host, for ``replayed_routes``)."""
+    route = tf_mod._route
 
-    def recording(cfg, x, router_w, *experts):
-        logits = torch.einsum("td,de->te", x.float(), router_w.float())
-        top = torch.topk(torch.softmax(logits, dim=-1), cfg.top_k, dim=-1)
-        into.append(top.indices.sort(dim=-1).values)
-        return dispatch(cfg, x, router_w, *experts)
-    tf_mod._moe_dispatch_local = recording
+    def recording(cfg, x, router_w):
+        gates, idx, aux = route(cfg, x, router_w)
+        into.append(idx.sort(dim=-1).values if sort
+                    else idx.to(torch.uint8).cpu())
+        return gates, idx, aux
+    tf_mod._route = recording
     try:
         yield
     finally:
-        tf_mod._moe_dispatch_local = dispatch
+        tf_mod._route = route
+
+
+@contextlib.contextmanager
+def replayed_routes(calls, stats: dict):
+    """Route each MoE call as ``calls`` give it, in turn (experts in the
+    router's order; ``stats["calls"]`` counts them against
+    ``stats["recorded"]``); the gates and aux from this run's own router
+    at those experts. Where this run's own top-k picks other experts,
+    ``stats``
+    counts the (token, call) pairs (``flips``) and keeps the largest
+    share of the probability its own experts hold beyond the replayed
+    ones (``gap_max``: a near-tie is 0 up to rounding)."""
+    route = tf_mod._route
+    it = iter(calls)
+    stats.update(flips=0, gap_max=0.0, calls=0, recorded=len(calls))
+
+    def replaying(cfg, x, router_w):
+        _, own, _ = route(cfg, x, router_w)
+        idx = next(it).to(device=own.device, dtype=torch.long)
+        probs = torch.softmax(torch.einsum(
+            "td,de->te", x.float(), router_w.float()), dim=-1)
+        mine = probs.gather(1, own).sum(-1)
+        theirs = probs.gather(1, idx).sum(-1)
+        flip = (own.sort(-1).values != idx.sort(-1).values).any(-1)
+        stats["calls"] += 1
+        if flip.any():
+            stats["flips"] += int(flip.sum())
+            stats["gap_max"] = max(stats["gap_max"], float(
+                ((mine - theirs) / mine)[flip].max()))
+        gates = probs.gather(1, idx)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        T, E = x.shape[0], cfg.n_experts
+        density = torch.zeros(E, device=x.device).index_add_(
+            0, idx.reshape(-1), torch.ones(idx.numel(), device=x.device)
+        ) / (T * cfg.top_k)
+        return gates, idx, E * torch.sum(density * probs.mean(0))
+    tf_mod._route = replaying
+    try:
+        yield
+    finally:
+        tf_mod._route = route
 
 
 def route_differences(served: list, ref: list) -> tuple[int, int | None]:
@@ -2651,7 +2731,7 @@ def phase_train_lm(smi: str, device="cuda") -> None:
 # edge tensors at d 70-512 alone is 17-63 GB: the JAX package trains it
 # only partition-parallel over a mesh)
 GNN_RUN_SHAPES = ("full_graph_sm", "minibatch_lg", "molecule")
-GNN_STEPS = 5
+GNN_STEPS = 3                  # the time limit, beside phase 12
 # minibatch_lg: the sampler's seeds and fanout over a reddit-scale graph
 MB_GRAPH_NODES = 232_965
 MB_GRAPH_EDGES = 114_615_892
@@ -3055,6 +3135,607 @@ def phase_train_gnn(smi: str, device="cuda") -> None:
           "seconds": time.perf_counter() - t_phase})
 
 
+# -- phase 12, mesh-models: the models sharded over four gloo ranks ----------
+
+# four gloo ranks sharing the card on a (data 2, model 2) mesh (FSDP on);
+# granite-moe-1b-a400m at its published width and depth
+MM_RANKS = 4
+MM_MODEL = 2                   # the model axis; data = MM_RANKS / MM_MODEL
+MM_SEQ = 4096                  # train_4k's sequence
+MM_FWD_BATCH = 2
+MM_TRAIN_BATCH = 4             # train_4k's batch of 256 cut to 4
+MM_DECODE = 8
+MM_TRAIN_STEPS = 3
+MM_REL_L2 = 1e-5               # float32 logits, mesh against one rank
+# tests/test_torch_train.py's tolerances: rtol, and an atol of 1e-6 plus
+# this share of the leaf's largest magnitude
+MM_GRAD_RTOL, MM_GRAD_ATOL, MM_GRAD_LEAF = 1e-4, 1e-6, 3e-5
+MM_LOSS_RTOL = 1e-5
+# a MoE route the one-rank run would pick otherwise, with the mesh's
+# hidden states, is a near-tie: its experts hold at most this share of
+# probability more than the mesh's
+MM_ROUTE_GAP = 1e-4
+MM_TIMEOUT = 1200.0
+# the partition-parallel GNN runs: (arch, shape, config, AdamW steps,
+# whether the first is held to the blockwise run on one rank). "f32" is
+# BASE in float32; "base" BASE as it is (EquiformerV2's bf16). EquiformerV2's
+# float32 check is cut to EQ_CHECK_LAYERS of its 12 layers: at 12, four
+# ranks' float32 state (~20 GB each on minibatch_lg's shape) does not fit
+# the one card they share; its three steps run at BASE
+MM_GNN = (("dimenet", "full_graph_sm", "f32", 3, True),
+          ("graphcast", "full_graph_sm", "f32", 3, True),
+          ("equiformer-v2", "minibatch_lg", "f32-cut", 1, True),
+          ("equiformer-v2", "minibatch_lg", "base", 3, False))
+EQ_CHECK_LAYERS = 6
+
+
+def host_full(x):
+    """Rank 0: a ``DTensor``'s whole value on the host, from every rank's
+    shard sent to it (``dist.gather``); the other ranks: None. A tensor
+    dimension is sharded over one mesh dimension at most."""
+    loc = x.to_local().detach().cpu().contiguous()
+    mesh = x.device_mesh
+    rank, world = dist.get_rank(), dist.get_world_size()
+    parts = [torch.empty_like(loc) for _ in range(world)] if rank == 0 \
+        else None
+    dist.gather(loc, parts, dst=0)
+    if rank != 0:
+        return None
+    full = torch.empty(x.shape, dtype=loc.dtype)
+    for r, part in enumerate(parts):
+        coord = [int(c) for c in (mesh.mesh == r).nonzero()[0]]
+        idx = [slice(None)] * x.ndim
+        for i, pl in enumerate(x.placements):
+            if pl.is_shard():
+                n = part.shape[pl.dim]
+                idx[pl.dim] = slice(coord[i] * n, (coord[i] + 1) * n)
+        full[tuple(idx)] = part
+    return full
+
+
+def ordered(tree) -> list:
+    """A tree's leaves in the order of its dicts and lists (a
+    ``ParamTree``'s ``named_parameters`` order)."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in ordered(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in ordered(v)]
+    return [tree]
+
+
+def timed(fn):
+    """(fn's result, wall ms, {ms, calls, bytes} of the model's
+    collectives): the card synchronized before and after, the
+    collectives' counters reset."""
+    torch.cuda.synchronize()
+    mm_coll.reset_stats()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    st = mm_coll.STATS
+    return out, (time.perf_counter() - t) * 1e3, {
+        "ms": st["seconds"] * 1e3, "calls": st["calls"],
+        "bytes": st["bytes"]}
+
+
+def within_train_tol(got, want) -> float:
+    """The largest |got - want| over tests/test_torch_train.py's allowed
+    difference (``MM_GRAD_*``): at most 1 passes."""
+    got, want = got.float(), want.float()
+    allowed = (MM_GRAD_ATOL + MM_GRAD_LEAF * float(want.abs().max())
+               + MM_GRAD_RTOL * want.abs())
+    return float(((got - want).abs() / allowed).max())
+
+
+def mm_lm_config():
+    """granite-moe-1b-a400m's FULL config in float32 at a capacity that
+    drops nothing (each data shard counts its own tokens)."""
+    return dataclasses.replace(no_drop(granite_moe_1b.FULL),
+                               dtype=torch.float32)
+
+
+def mm_lm_inputs(cfg) -> dict:
+    rng = np.random.default_rng(MODEL_SEED)
+
+    def toks(*shape):
+        return torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).cuda()
+    return {"fwd": toks(MM_FWD_BATCH, MM_SEQ),
+            "decode": [toks(MM_FWD_BATCH, 1) for _ in range(MM_DECODE)],
+            "train": [toks(MM_TRAIN_BATCH, MM_SEQ)
+                      for _ in range(MM_TRAIN_STEPS)]}
+
+
+def gathered_routes(routes: list, mesh) -> list | None:
+    """Rank 0: each data shard's recorded MoE routes, call by call (from
+    the ranks at model coordinate 0); the other ranks: None. Every rank
+    recorded the same calls."""
+    flat = torch.cat([r.reshape(-1) for r in routes])
+    rank = dist.get_rank()
+    parts = ([torch.empty_like(flat) for _ in range(dist.get_world_size())]
+             if rank == 0 else None)
+    dist.gather(flat, parts, dst=0)
+    if rank != 0:
+        return None
+    sizes = [r.numel() for r in routes]
+    return [[x.view(r.shape) for x, r in zip(parts[int(q)].split(sizes),
+                                              routes)]
+            for q in mesh.mesh[:, 0]]
+
+
+def whole_batch_calls(shards: list) -> list:
+    """The routes of calls over the whole batch: each call's data shards'
+    rows in order."""
+    return [torch.cat(call) for call in zip(*shards)]
+
+
+def microbatch_calls(shards: list, k: int) -> list:
+    """The routes of one rank's ``grad_accum`` = data shards × ``k``
+    microbatches in turn: microbatch j is data shard j // k's microbatch
+    j % k, whose calls are the shard's in k equal runs."""
+    per = len(shards[0]) // k
+    return [c for j in range(len(shards) * k)
+            for c in shards[j // k][(j % k) * per:(j % k + 1) * per]]
+
+
+def mm_lm_rank() -> dict:
+    """One rank of the sharded granite: forward, prefill and decode (the
+    MoE routes recorded), three float32 train steps and one bf16 step,
+    ``compressed_psum`` and a checkpoint across meshes; rank 0 keeps the
+    outputs, gathered on the host, and then runs the same on one rank
+    (``mm_lm_reference``)."""
+    mesh = mesh_mod.make_host_mesh(MM_MODEL, device="cuda")
+    rank = dist.get_rank()
+    pol = ShardingPolicy(("data", "model"), fsdp=True)
+    cfg = mm_lm_config()
+    _, logical = tf_mod.init_transformer(cfg, None)
+    inp = mm_lm_inputs(cfg)
+    keep, out = {}, {"rank": rank, "backend": dist.get_backend()}
+    torch.cuda.reset_peak_memory_stats()
+    s_max = MM_SEQ + MM_DECODE
+
+    # serving: forward, prefill past 2,048 positions, decode
+    sp = distribute_tree(lm_weights(cfg, "cuda"), logical, mesh, pol)
+    _free()
+    routes: list = []
+    with torch.no_grad(), recorded_routes(routes, sort=False):
+        (lg, aux), ms, coll = timed(lambda: tf_mod.forward(
+            cfg, sp, inp["fwd"], mesh=mesh, policy=pol))
+        out["forward"] = {"ms": ms, "collectives": coll}
+        keep["forward"], keep["aux"] = host_full(lg), float(aux)
+        del lg
+        (lg, cache), ms, coll = timed(lambda: tf_mod.prefill(
+            cfg, sp, inp["fwd"], s_max, mesh=mesh, policy=pol))
+        out["prefill"] = {"ms": ms, "collectives": coll,
+                          "cache_seq_sharded": cache["blocks"]["k"]
+                          .placements[1].is_shard()}
+        keep["prefill"] = host_full(lg)
+        dec = []
+        for i, t in enumerate(inp["decode"]):
+            (lg, cache), ms, coll = timed(lambda: tf_mod.decode_step(
+                cfg, sp, cache, t, MM_SEQ + i, mesh=mesh, policy=pol))
+            dec.append((ms, coll))
+            keep[f"decode{i}"] = host_full(lg)
+        out["decode"] = {"ms_p50": float(np.median([d[0] for d in dec])),
+                         "collective_ms_p50": float(np.median(
+                             [d[1]["ms"] for d in dec])),
+                         "collectives_step": dec[-1][1]}
+    keep["routes"] = gathered_routes(routes, mesh)
+    del sp, cache, lg, routes
+    _free()
+
+    # training: three float32 steps; AdamW's moments after the first are
+    # 0.1 and 0.05 × the clipped gradient (and its square), every leaf
+    sm = ParamTree(distribute_tree(lm_weights(cfg, "cuda",
+                                              trainable=True),
+                                   logical, mesh, pol), requires_grad=True)
+    _free()
+    opt = AdamW()
+    state = {"params": sm, "opt": opt.init(sm.tree()),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    step = tf_mod.make_train_step(cfg, opt, mesh=mesh, policy=pol)
+    steps, routes = [], []
+    for i, t in enumerate(inp["train"]):
+        with (recorded_routes(routes, sort=False) if i == 0
+              else contextlib.nullcontext()):
+            (state, m), ms, coll = timed(lambda: step(state, {"tokens": t}))
+        steps.append({"loss": float(m["loss"]), "aux": float(m["aux_loss"]),
+                      "ms": ms, "collectives": coll})
+        if i == 0:
+            keep["train_routes"] = gathered_routes(routes, mesh)
+            del routes
+            t0 = time.perf_counter()
+            keep["m"] = [host_full(x) for x in ordered(state["opt"]["m"])]
+            keep["v"] = [host_full(x) for x in ordered(state["opt"]["v"])]
+            out["moments_gather_s"] = time.perf_counter() - t0
+    out["train"] = steps
+    keep["steps"] = [(s["loss"], s["aux"]) for s in steps]
+    out["moments_placed"] = all(
+        x.placements == p.placements for x, p in zip(
+            ordered(state["opt"]["m"]), sm.parameters()))
+    # one bf16 step at the config's own capacity (1.25), timed only
+    bcfg = dataclasses.replace(cfg, dtype=torch.bfloat16,
+                               capacity_factor=granite_moe_1b.FULL
+                               .capacity_factor)
+    bstep = tf_mod.make_train_step(bcfg, opt, mesh=mesh, policy=pol)
+    (state, m), ms, coll = timed(lambda: bstep(state, {
+        "tokens": inp["train"][0]}))
+    out["train_bf16"] = {"loss": float(m["loss"]), "ms": ms,
+                         "collectives": coll}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+
+    # a checkpoint from (2, 2), restored onto (1, 4) and onto one rank
+    names = ("embed", "unembed", "final_norm")
+    sub = {k: state["params"][k] for k in names}
+    sub["blocks"] = [state["params"]["blocks"][0].tree(lambda p: p)]
+    ck = os.path.join(BUILD, "mesh_models_ckpt")
+    if rank == 0:
+        shutil.rmtree(ck, ignore_errors=True)
+    dist.barrier()
+    mgr = CheckpointManager(ck)
+    t0 = time.perf_counter()
+    mgr.save(1, sub)
+    dist.barrier()
+    out["ckpt_save_s"] = time.perf_counter() - t0
+    mesh14 = mesh_mod.make_host_mesh(MM_RANKS, device="cuda")
+    tmpl = tree_map(lambda x: np.zeros(x.shape, np.float32), sub)
+    sub_logical = {k: logical[k] for k in names} | {
+        "blocks": [logical["blocks"][0]]}
+    back = mgr.restore(1, tmpl, shardings=pol.shardings_for_tree(
+        mesh14, sub_logical, tmpl))
+    out["ckpt_2x2_to_1x4_equal"] = all(
+        bool(torch.equal(mm_coll.full_tensor(a).cpu(),
+                         mm_coll.full_tensor(b).cpu()))
+        for a, b in zip(ordered(back), ordered(sub)))
+    if rank == 0:
+        keep["ckpt_host"] = ordered(mgr.restore(1, tmpl))
+    keep["ckpt_full"] = [host_full(b) for b in ordered(sub)]
+    del state, sm, sub, back
+    _free()
+
+    # compressed_psum over the four ranks, on the card
+    x = np.random.default_rng(0).normal(size=(64, 32)).astype(np.float32)
+    xs = torch.from_numpy(x[16 * rank:16 * rank + 16]).cuda()
+    true = x.reshape(MM_RANKS, 16, 32).mean(0)
+    world = dist.group.WORLD
+    m1, _ = compressed_psum(xs, world, torch.zeros_like(xs))
+    out["psum_rel1"] = float(np.abs(m1.cpu().numpy() - true).max()
+                             / np.abs(true).max())
+    acc, e = np.zeros_like(true), torch.zeros_like(xs)
+    for _ in range(20):
+        m1, e = compressed_psum(xs, world, e)
+        acc = acc + m1.cpu().numpy()
+    out["psum_rel20"] = float(np.abs(acc - 20 * true).max()
+                              / np.abs(20 * true).max())
+    out["psum_device"] = str(m1.device)
+    dist.barrier()
+    mesh_mod.close_ranks()
+    if rank == 0:
+        t0 = time.perf_counter()
+        out["reference"] = mm_lm_reference(cfg, inp, keep)
+        out["reference"]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def mm_lm_reference(cfg, inp, keep) -> dict:
+    """Rank 0, alone on the card once the others are gone: the same
+    forward, prefill and decode on one rank with the mesh's MoE routes
+    replayed (``replayed_routes``: where its own router disagrees, a
+    near-tie is counted), and the same three steps; how far the mesh's
+    outputs are from them."""
+    out = {}
+    s_max = MM_SEQ + MM_DECODE
+    n_data = MM_RANKS // MM_MODEL
+    model = lm_weights(cfg, "cuda")
+    stats: dict = {}
+    with torch.no_grad(), replayed_routes(
+            whole_batch_calls(keep["routes"]), stats):
+        lg, aux = tf_mod.forward(cfg, model, inp["fwd"])
+        out["forward_rel_l2"] = rel_l2(keep["forward"], lg)
+        del lg
+        lg, cache = tf_mod.prefill(cfg, model, inp["fwd"], s_max)
+        out["prefill_rel_l2"] = rel_l2(keep["prefill"], lg)
+        dec = []
+        for i, t in enumerate(inp["decode"]):
+            lg, cache = tf_mod.decode_step(cfg, model, cache, t, MM_SEQ + i)
+            dec.append(rel_l2(keep[f"decode{i}"], lg))
+        out["decode_rel_l2_max"] = max(dec)
+    out["routes"] = dict(stats)
+    with torch.no_grad():
+        aux = np.mean([float(tf_mod.forward(cfg, model, t)[1])
+                       for t in inp["fwd"].chunk(n_data)])
+    out["aux_rel"] = abs(keep["aux"] - aux) / max(abs(aux), 1e-30)
+    del model, cache, lg
+    _free()
+    acfg = dataclasses.replace(cfg, grad_accum=cfg.grad_accum * n_data)
+    masters = lm_weights(acfg, "cuda", trainable=True)
+    opt = AdamW()
+    state = {"params": masters, "opt": opt.init(masters.tree()),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    step = tf_mod.make_train_step(acfg, opt)
+    losses, stats = [], {}
+    forced = microbatch_calls(keep["train_routes"], cfg.grad_accum)
+    for i, t in enumerate(inp["train"]):
+        with (replayed_routes(forced, stats) if i == 0
+              else contextlib.nullcontext()):
+            state, m = step(state, {"tokens": t})
+        losses.append((float(m["loss"]), float(m["aux_loss"])))
+        if i == 0:
+            out["train_routes"] = dict(stats)
+            for k in ("m", "v"):
+                out[f"{k}1_tol_ratio_max"] = max(
+                    within_train_tol(g, w.cpu())
+                    for g, w in zip(keep[k], ordered(state["opt"][k])))
+    out["loss_rel"] = [abs(g[0] - w[0]) / abs(w[0])
+                       for g, w in zip(keep["steps"], losses)]
+    out["aux_rel_steps"] = [abs(g[1] - w[1]) / abs(w[1])
+                            for g, w in zip(keep["steps"], losses)]
+    out["losses"] = losses
+    out["ckpt_host_equal"] = all(
+        np.array_equal(np.asarray(a), b.numpy())
+        for a, b in zip(keep["ckpt_host"], keep["ckpt_full"]))
+    del masters, state
+    _free()
+    return out
+
+
+def regroup(src, dst, n_src: int, n_dst: int, parts: int, multiple: int):
+    """cd-0 partitions of an edge list: each partition's edges (both ends
+    in its contiguous blocks of ``n_src / parts`` and ``n_dst / parts``
+    nodes), renumbered locally, in a block of rows sized by the largest
+    partition's and padded to a multiple of ``multiple`` (padding rows: an
+    edge between the block's first nodes); an edge between partitions is
+    dropped. Returns (src, dst, the original index of each row, -1 for
+    padding)."""
+    bs, bd = n_src // parts, n_dst // parts
+    keep = [np.nonzero((src // bs == r) & (dst // bd == r))[0]
+            for r in range(parts)]
+    rows = -(-max(len(k) for k in keep) // multiple) * multiple
+    s, d, i = (np.zeros(parts * rows, np.int64) for _ in range(3))
+    i[:] = -1
+    for r, k in enumerate(keep):
+        at = slice(r * rows, r * rows + len(k))
+        s[at], d[at], i[at] = src[k] - r * bs, dst[k] - r * bd, k
+    return s, d, i
+
+
+def rows_of(a, idx):
+    out = a[np.maximum(idx, 0)].copy()
+    out[idx < 0] = 0
+    return out
+
+
+def mm_gnn_batch(arch: str, shape: str, cfg) -> dict:
+    """The shape's graph (seeded, uniform edges) in ``MM_RANKS`` cd-0
+    partitions laid out in blocks of rows, as the partition-parallel step
+    takes it; minibatch_lg's loss on its first 1,024 nodes (the seeds)."""
+    info = GNN_SHAPES[shape]
+    rng = np.random.default_rng(MODEL_SEED)
+    n, e, P = info["n_nodes"], info["n_edges"], MM_RANKS
+    if arch == "graphcast":
+        g = graphcast.synth_batch(cfg, n, e, rng)
+        n_mesh = -(-g.n_mesh // P) * P
+        pos = np.zeros((n_mesh, 3), np.float32)
+        pos[:g.n_mesh] = g.mesh_pos
+        gs, gd, gi = regroup(g.g2m_src, g.g2m_dst, n, n_mesh, P, 1)
+        ms, md, _ = regroup(g.mesh_src, g.mesh_dst, n_mesh, n_mesh, P, 1)
+        ns, nd, ni = regroup(g.m2g_src, g.m2g_dst, n_mesh, n, P, 1)
+        return {"grid_feat": g.grid_feat, "mesh_pos": pos,
+                "target": g.target, "g2m_src": gs, "g2m_dst": gd,
+                "g2m_feat": rows_of(g.g2m_feat, gi), "mesh_src": ms,
+                "mesh_dst": md, "m2g_src": ns, "m2g_dst": nd,
+                "m2g_feat": rows_of(g.m2g_feat, ni)}
+    g = random_graph(n, e, info["d_feat"], rng,
+                     n_classes=info["n_classes"], with_pos=True)
+    mask = g.label_mask
+    if shape == "minibatch_lg":
+        mask = np.zeros(n, np.float32)
+        mask[:MB_SEEDS] = 1.0
+    chunks = getattr(cfg, "edge_chunks", 1)
+    s, d, _ = regroup(g.src, g.dst, n, n, P, max(chunks, 1))
+    b = {"node_feat": g.node_feat, "positions": g.positions,
+         "labels": g.labels.astype(np.int64), "label_mask": mask,
+         "src": s, "dst": d}
+    if arch == "dimenet":
+        rows = len(s) // P
+        tri = [dimenet.build_triplets(s[r * rows:(r + 1) * rows],
+                                      d[r * rows:(r + 1) * rows],
+                                      cfg.max_in_per_edge)
+               for r in range(P)]
+        b["t_kj"], b["t_ji"], b["t_mask"] = (
+            np.concatenate([t[k] for t in tri]) for k in range(3))
+        b["t_kj"], b["t_ji"] = (b["t_kj"].astype(np.int64),
+                                b["t_ji"].astype(np.int64))
+    return b
+
+
+def mm_gnn_config(arch: str, shape: str, variant: str):
+    """BASE width and depth for the shape, as it is (``base``), in
+    float32 (``f32``), or in float32 at ``EQ_CHECK_LAYERS`` layers
+    (``f32-cut``)."""
+    cfg = gnn_config(arch, shape)
+    if variant == "base":
+        return cfg
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    return gnn_depth(cfg, EQ_CHECK_LAYERS) if variant == "f32-cut" else cfg
+
+
+def mm_gnn_rank() -> dict:
+    """One rank of the partition-parallel GNN runs (``MM_GNN``): the graph
+    on the host, this rank's block copied to the card by the step; rank 0
+    keeps the first moment after a checked run's first step (0.1 × the
+    clipped mean gradient) and then runs the blockwise reference
+    (``mm_gnn_reference``)."""
+    mesh = mesh_mod.make_host_mesh(MM_MODEL, device="cuda")
+    rank = dist.get_rank()
+    out, keep = {"rank": rank}, {}
+    for arch, shape, variant, n_steps, checked in MM_GNN:
+        cfg = mm_gnn_config(arch, shape, variant)
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        batch = {k: torch.from_numpy(v) for k, v in
+                 mm_gnn_batch(arch, shape, cfg).items()}
+        state = gnn_common.gnn_train_state(gnn_init(arch, cfg, "cuda"))
+        step = GNN_ARCHS[arch].partitioned_train_step(cfg, mesh)
+        runs = []
+        for i in range(n_steps):
+            (state, m), ms, coll = timed(lambda: step(state, batch))
+            runs.append({"loss": float(m["loss"]), "ms": ms,
+                         "collectives": coll})
+            if i == 0 and checked and rank == 0:
+                keep[arch] = ([x.detach().to("cpu", copy=True) for x in
+                               ordered(state["opt"]["m"])], runs[0]["loss"])
+        out[f"{arch}-{variant}"] = {
+            "shape": shape, "dtype": str(cfg.dtype).split(".")[-1],
+            "layers": gnn_layers(cfg), "steps": runs,
+            "edge_rows": int(batch["mesh_src" if arch == "graphcast"
+                                   else "src"].shape[0]),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+        del state, batch, step
+    dist.barrier()
+    mesh_mod.close_ranks()
+    if rank == 0:
+        out["reference"] = {
+            arch: mm_gnn_reference(arch, shape, variant, keep[arch])
+            for arch, shape, variant, _, checked in MM_GNN if checked}
+    return out
+
+
+def mm_gnn_reference(arch: str, shape: str, variant: str, kept) -> dict:
+    """The first step of ``arch`` on one rank, twice: each partition's
+    ``local_loss`` in turn, the losses and gradients averaged, one AdamW
+    update. The mesh's loss against the first, and its first moment
+    (each leaf over its largest magnitude, ``gnn_grad_errs``' floor)
+    within ``F32_TOL`` or ``GNN_REMAT_SPREAD`` times the two one-rank
+    runs' own spread (``index_add_`` adds in varying order; GraphCast's
+    16 layers carry it to ~5e-4, phase 11), whichever is more."""
+    cfg = mm_gnn_config(arch, shape, variant)
+    _free()
+    batch = {k: torch.from_numpy(v) for k, v in
+             mm_gnn_batch(arch, shape, cfg).items()}
+    loss_of = GNN_ARCHS[arch].local_loss(cfg)
+
+    def first_step():
+        model = gnn_init(arch, cfg, "cuda")
+        state = gnn_common.gnn_train_state(model)
+        total = 0.0
+        for r in range(MM_RANKS):
+            loss = loss_of(model, {k: v.chunk(MM_RANKS)[r].cuda()
+                                   for k, v in batch.items()})
+            (loss / MM_RANKS).backward()
+            total += loss.item() / MM_RANKS
+        grads = model.tree(lambda p: p.grad)
+        opt = gnn_common.OPTIMIZER.update(model.tree(), grads,
+                                          state["opt"])[1]
+        return total, dict(enumerate(ordered(opt["m"])))
+    total, want = first_step()
+    _, again = first_step()
+    got = {i: g.cuda() for i, g in enumerate(kept[0])}
+    err = max(gnn_grad_errs(got, want).values())
+    spread = max(gnn_grad_errs(again, want).values())
+    return {"loss_rel": abs(kept[1] - total) / abs(total),
+            "m1_err_max": err, "one_rank_spread": spread,
+            "bound": max(F32_TOL, GNN_REMAT_SPREAD * spread)}
+
+
+def mesh_models_rank(part: str) -> int:
+    """``chip_smoke.py --mesh-models-rank lm|gnn``: one rank of phase 12;
+    prints one JSON line."""
+    out = mm_lm_rank() if part == "lm" else mm_gnn_rank()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def launch_mesh_models(part: str) -> tuple[list, float]:
+    """The ranks of one part of phase 12: their JSON lines and the
+    launch's wall seconds."""
+    t = time.perf_counter()
+    ranks = mesh_mod.launch_ranks(
+        MM_RANKS, [os.path.abspath(__file__), "--mesh-models-rank", part],
+        timeout=MM_TIMEOUT)
+    return ([json.loads(r.stdout.strip().splitlines()[-1]) for r in ranks],
+            time.perf_counter() - t)
+
+
+def phase_mesh_models(smi: str) -> None:
+    """Phase 12: the models sharded over four gloo ranks sharing the card
+    (module docstring); every check fails the script."""
+    t_phase = time.perf_counter()
+    _free()          # the ranks share the card with this process
+    lm, lm_s = launch_mesh_models("lm")
+    ref = lm[0]["reference"]
+    emit({"phase": "mesh-models-granite", "card": smi,
+          "mesh": [MM_RANKS // MM_MODEL, MM_MODEL],
+          "backend": lm[0]["backend"],
+          "per_rank": [{k: r[k] for k in ("rank", "forward", "prefill",
+                                          "decode", "train", "train_bf16",
+                                          "peak_bytes")} for r in lm],
+          "reference": ref, "seconds": lm_s})
+    emit({"phase": "mesh-models-psum",
+          "rel1": lm[0]["psum_rel1"], "rel20": lm[0]["psum_rel20"],
+          "device": lm[0]["psum_device"]})
+    emit({"phase": "mesh-models-checkpoint",
+          "to_1x4_equal": [r["ckpt_2x2_to_1x4_equal"] for r in lm],
+          "to_one_rank_equal": ref["ckpt_host_equal"],
+          "save_s": lm[0]["ckpt_save_s"]})
+    check(all(r["backend"] == "gloo" for r in lm), "gloo ranks")
+    check(all(r["prefill"]["cache_seq_sharded"] for r in lm),
+          "the prefill cache shards its sequence over model")
+    check(all(r["moments_placed"] for r in lm),
+          "AdamW's moments are placed like their weights")
+    for k in ("forward_rel_l2", "prefill_rel_l2", "decode_rel_l2_max"):
+        check(ref[k] <= MM_REL_L2, f"mesh granite {k} {ref[k]:.3g}")
+    check(ref["aux_rel"] <= MM_LOSS_RTOL, f"aux {ref['aux_rel']:.3g}")
+    for k in ("m1_tol_ratio_max", "v1_tol_ratio_max"):
+        check(ref[k] <= 1.0, f"mesh granite {k} {ref[k]:.3g}")
+    for k in ("routes", "train_routes"):
+        check(ref[k]["calls"] == ref[k]["recorded"],
+              f"every recorded route replayed once: {ref[k]}")
+    check(ref["routes"]["gap_max"] <= MM_ROUTE_GAP,
+          f"routes the one rank would pick otherwise are near-ties: "
+          f"{ref['routes']}")
+    # the first step, its routes replayed, is held; after it the weights
+    # differ by Adam's sign steps on gradients that tie to the last bits,
+    # and the later losses are reported
+    check(ref["loss_rel"][0] <= MM_LOSS_RTOL
+          and ref["aux_rel_steps"][0] <= MM_LOSS_RTOL,
+          f"mesh granite first step: loss {ref['loss_rel'][0]:.3g}, aux "
+          f"{ref['aux_rel_steps'][0]:.3g}")
+    check(ref["train_routes"]["gap_max"] <= MM_ROUTE_GAP,
+          f"the first step's routes are near-ties: {ref['train_routes']}")
+    check(all(np.isfinite(r["train_bf16"]["loss"]) for r in lm),
+          "the bf16 step's loss is finite")
+    check(lm[0]["psum_rel1"] < 0.05 and
+          lm[0]["psum_rel20"] < lm[0]["psum_rel1"],
+          "compressed_psum error feedback on the card")
+    check(all(r["ckpt_2x2_to_1x4_equal"] for r in lm)
+          and ref["ckpt_host_equal"],
+          "a (2, 2) checkpoint restores onto (1, 4) and one rank")
+
+    gnn, gnn_s = launch_mesh_models("gnn")
+    for arch, shape, variant, _, checked in MM_GNN:
+        key = f"{arch}-{variant}"
+        line = {"phase": f"mesh-models-{key}-{shape}", "card": smi,
+                "per_rank": [r[key] for r in gnn]}
+        if checked:
+            line["reference"] = gnn[0]["reference"][arch]
+        emit(line)
+        check(all(np.isfinite(s["loss"]) for r in gnn
+                  for s in r[key]["steps"]), f"{key} losses finite")
+        if checked:
+            gref = line["reference"]
+            check(gref["loss_rel"] <= MM_LOSS_RTOL
+                  and gref["m1_err_max"] <= gref["bound"],
+                  f"{key}: the partition-parallel step against the "
+                  f"blockwise run: {gref}")
+    emit({"phase": "mesh-models", "cut": {
+        "train_batch": f"train_4k's 256 cut to {MM_TRAIN_BATCH}",
+        "equiformer_f32_check": f"{EQ_CHECK_LAYERS} of 12 layers",
+        "ogb_products": "not run: one card holds every partition, and "
+                        "one edge tensor alone is 17-63 GB"},
+          "lm_s": lm_s, "gnn_s": gnn_s,
+          "seconds": time.perf_counter() - t_phase})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3203,6 +3884,7 @@ def main() -> int:
     phase_models_din(smi)
     phase_train_lm(smi)
     phase_train_gnn(smi)
+    phase_mesh_models(smi)
     check(K.LAUNCHES == before, "the model phases launch no scan kernel")
 
     phase_scan_kernels(scan_kernel_labels(all_plan, paper_plan, cover_plan,
@@ -3232,8 +3914,9 @@ def main() -> int:
 
 
 def train_only(phase) -> int:
-    """``--train-lm`` (phase 10) or ``--train-gnn`` (phase 11): that phase
-    alone, held to launch no scan kernel, then the card's line."""
+    """``--train-lm`` (phase 10), ``--train-gnn`` (phase 11) or
+    ``--mesh-models`` (phase 12): that phase alone, held to launch no scan
+    kernel, then the card's line."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3254,4 +3937,8 @@ if __name__ == "__main__":
         sys.exit(train_only(phase_train_lm))
     if sys.argv[1:] == ["--train-gnn"]:
         sys.exit(train_only(phase_train_gnn))
+    if len(sys.argv) == 3 and sys.argv[1] == "--mesh-models-rank":
+        sys.exit(mesh_models_rank(sys.argv[2]))
+    if sys.argv[1:] == ["--mesh-models"]:
+        sys.exit(train_only(phase_mesh_models))
     sys.exit(main())

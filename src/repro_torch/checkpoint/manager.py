@@ -13,6 +13,12 @@
   the assessment loop is not blocked on disk.
 * **self-describing** — ``manifest.json`` records step, keys, shapes,
   dtypes and user metadata for compatibility checks on restore.
+* **sharded trees** — a tree of ``DTensor``s (weights placed on a mesh)
+  is saved by every rank of the mesh together: each leaf is gathered
+  whole (``dist.collectives.full_tensor``) and the mesh's first rank
+  alone writes it, in the format above. ``restore(..., shardings=)``
+  places each leaf onto a mesh (``distribute_tensor``): an elastic restart
+  onto another mesh shape, or from a checkpoint of the JAX package.
 """
 from __future__ import annotations
 
@@ -38,8 +44,28 @@ def _leaves(tree, prefix: str = ""):
         yield prefix, tree
 
 
+def _host(v) -> np.ndarray:
+    """A leaf as a host array: a ``DTensor`` gathered whole first."""
+    if type(v).__name__ == "DTensor":
+        from ..dist.collectives import full_tensor
+        v = full_tensor(v)
+    if hasattr(v, "detach"):
+        v = v.detach().cpu()
+    return np.asarray(v)
+
+
 def _flatten(tree) -> dict[str, np.ndarray]:
-    return {k: np.asarray(v) for k, v in _leaves(tree)}
+    return {k: _host(v) for k, v in _leaves(tree)}
+
+
+def _writer_rank(tree) -> bool:
+    """Whether this process writes ``tree``: always, unless it holds
+    ``DTensor``s and this is not the first rank of their mesh."""
+    for _, v in _leaves(tree):
+        if type(v).__name__ == "DTensor":
+            import torch.distributed as dist
+            return dist.get_rank() == int(v.device_mesh.mesh.flatten()[0])
+    return True
 
 
 def _rebuild(template, data, prefix: str = ""):
@@ -90,12 +116,16 @@ class CheckpointManager:
     def save(self, step: int, tree, metadata: dict[str, Any] | None = None):
         # an async write of the same step would share its temp directory
         self.wait()
-        self._write(step, _flatten(tree), metadata or {})
+        flat = _flatten(tree)    # every rank of a mesh gathers its leaves
+        if _writer_rank(tree):
+            self._write(step, flat, metadata or {})
 
     def save_async(self, step: int, tree,
                    metadata: dict[str, Any] | None = None):
         self.wait()  # one outstanding write at a time (raises if it failed)
         flat = _flatten(tree)  # host copy on the caller's thread
+        if not _writer_rank(tree):
+            return
 
         def _write_capturing():
             try:
@@ -132,13 +162,32 @@ class CheckpointManager:
                                "manifest.json")) as f:
             return json.load(f)
 
-    def restore(self, step: int, template):
-        """Restore into the structure of ``template`` (host numpy leaves)."""
+    def restore(self, step: int, template, shardings=None):
+        """Restore into the structure of ``template`` (host numpy leaves);
+        optionally re-shard.
+
+        ``shardings`` (a tree of ``template``'s structure whose leaves are
+        ``dist.sharding.NamedSharding``s, as ``shardings_for_tree`` makes)
+        places each leaf onto its mesh as a ``DTensor``: every rank of the
+        mesh reads the file and keeps its own shard. This is how an elastic
+        restart onto a different topology works.
+        """
         self.wait()
         path = os.path.join(self.directory, f"step_{step:010d}", "arrays.npz")
+        keys = [k for k, _ in _leaves(template)]
         with np.load(path) as data:
-            missing = set(_flatten(template)) - set(data.files)
+            missing = set(keys) - set(data.files)
             if missing:
                 raise KeyError(
                     f"checkpoint missing keys: {sorted(missing)[:5]}")
-            return _rebuild(template, {k: data[k] for k in data.files})
+            out = _rebuild(template, {k: data[k] for k in data.files})
+        if shardings is None:
+            return out
+        import torch
+        from torch.distributed.tensor import distribute_tensor
+        places = dict(_leaves(shardings))
+        return _rebuild(out, {
+            k: distribute_tensor(torch.from_numpy(np.array(a)),
+                                 places[k].mesh, places[k].placements,
+                                 src_data_rank=None)
+            for k, a in _leaves(out)})

@@ -6,8 +6,10 @@ dtypes, and the shape sets they are served and trained at.
 ``lm_config`` gives the train launcher's config of one at a scale;
 ``GNN_ARCHS`` maps each GNN architecture's name to its module (``BASE``,
 ``SMOKE``, ``train_step``, ``_smoke``, ``_flops``, and but for graphcast,
-which trains ``BASE`` on every shape, ``_cfg_for``). The
-registry of dry-run bundles waits for the dry-run slice.
+which trains ``BASE`` on every shape, ``_cfg_for``; dimenet,
+equiformer-v2 and graphcast also ``local_loss`` and the partition-parallel
+``partitioned_train_step``). The registry of dry-run bundles waits for the
+dry-run slice.
 """
 import dataclasses
 

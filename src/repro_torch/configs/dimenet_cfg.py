@@ -9,8 +9,9 @@ import torch
 
 from ..models.common import require_device
 from ..models.gnn import dimenet as M
-from ..models.gnn.common import block_diagonal_batch, to_device
-from .gnn_common import GNN_SHAPES, gnn_flops_info, gnn_train_step
+from ..models.gnn.common import GraphBatch, block_diagonal_batch, to_device
+from .gnn_common import (GNN_SHAPES, gnn_flops_info, gnn_partitioned_step,
+                         gnn_train_step)
 
 BASE = M.DimeNetConfig(n_blocks=6, d_hidden=128, n_bilinear=8,
                        n_spherical=7, n_radial=6, remat="full")
@@ -35,6 +36,28 @@ def train_step(cfg: M.DimeNetConfig):
     ``step(state, (graph, triplets))`` with a ``GraphBatch`` of tensors and
     ``build_triplets``' arrays as tensors (``M.triplets_to_device``)."""
     return gnn_train_step(lambda p, b: M.loss_fn(cfg, p, b[0], b[1]))
+
+
+def local_loss(cfg: M.DimeNetConfig):
+    """The loss of one partition's block of rows (the JAX ``_bundle``'s
+    ``local_loss``): ``node_feat``, ``positions``, ``labels`` and
+    ``label_mask`` a row a node, ``src``/``dst`` a row an edge, ``t_kj``,
+    ``t_ji`` and ``t_mask`` a row a triplet slot, indices local."""
+    def loss(p, b):
+        gb = GraphBatch(node_feat=b["node_feat"], src=b["src"],
+                        dst=b["dst"], n_nodes=b["node_feat"].shape[0],
+                        positions=b["positions"], labels=b["labels"],
+                        label_mask=b["label_mask"])
+        return M.loss_fn(cfg, p, gb, (b["t_kj"], b["t_ji"], b["t_mask"]))
+    return loss
+
+
+def partitioned_train_step(cfg: M.DimeNetConfig, mesh):
+    """The partition-parallel (cd-0) train step of the JAX ``_bundle`` on
+    ``mesh``: ``step(state, batch)`` with ``batch`` a dict of the whole
+    graph's tensors laid out in partition blocks
+    (``gnn_common.gnn_partitioned_step``)."""
+    return gnn_partitioned_step(local_loss(cfg), mesh)
 
 
 def _smoke(device="cuda"):

@@ -9,8 +9,9 @@ import torch
 
 from ..models.common import require_device
 from ..models.gnn import equiformer_v2 as M
-from ..models.gnn.common import block_diagonal_batch, to_device
-from .gnn_common import GNN_SHAPES, gnn_flops_info, gnn_train_step
+from ..models.gnn.common import GraphBatch, block_diagonal_batch, to_device
+from .gnn_common import (GNN_SHAPES, gnn_flops_info, gnn_partitioned_step,
+                         gnn_train_step)
 
 BASE = M.EquiformerV2Config(n_layers=12, d_hidden=128, l_max=6, m_max=2,
                             n_heads=8, remat="full", dtype=torch.bfloat16)
@@ -34,6 +35,31 @@ def train_step(cfg: M.EquiformerV2Config):
     """The single-device train step of the JAX ``_bundle`` at ``cfg``:
     ``step(state, batch)`` with a ``GraphBatch`` of tensors."""
     return gnn_train_step(lambda p, b: M.loss_fn(cfg, p, b))
+
+
+def local_loss(cfg: M.EquiformerV2Config):
+    """The loss of one partition's block of rows (the JAX ``_bundle``'s
+    ``local_loss``): ``node_feat``, ``positions``, ``labels`` and
+    ``label_mask`` a row a node, ``src``/``dst`` a row an edge, indices
+    local."""
+    def loss(p, b):
+        gb = GraphBatch(node_feat=b["node_feat"], src=b["src"],
+                        dst=b["dst"], n_nodes=b["node_feat"].shape[0],
+                        positions=b["positions"], labels=b["labels"],
+                        label_mask=b["label_mask"])
+        return M.loss_fn(cfg, p, gb)
+    return loss
+
+
+def partitioned_train_step(cfg: M.EquiformerV2Config, mesh):
+    """The partition-parallel (cd-0) train step of the JAX ``_bundle`` on
+    ``mesh`` (its branch for minibatch_lg and ogb_products, with
+    ``cfg.edge_chunks`` two-pass edge chunks a partition):
+    ``step(state, batch)`` with ``batch`` a dict of the whole graph's
+    tensors laid out in partition blocks, the edge rows a multiple of
+    the ranks times ``cfg.edge_chunks``
+    (``gnn_common.gnn_partitioned_step``)."""
+    return gnn_partitioned_step(local_loss(cfg), mesh)
 
 
 def _smoke(device="cuda"):

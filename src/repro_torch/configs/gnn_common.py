@@ -14,15 +14,24 @@ The four assignment shapes:
 gradients, then ``AdamW(lr=1e-3, weight_decay=0.0)``, then ``step + 1``,
 on a state in the JAX layout ``{"params", "opt": {"m", "v", "count"},
 "step"}``. The update writes the weights in their own dtype, as the JAX
-optimizer does: bf16 weights keep no float32 masters. The mesh half of the
-JAX bundles (row sharding over every mesh axis, the partition-parallel cd-0
-step) waits for the sharding slice.
+optimizer does: bf16 weights keep no float32 masters.
+
+Under a mesh (``torch.distributed``'s ``DeviceMesh``): ``gnn_policy`` is
+the JAX package's (node and edge rows over every mesh axis, replicated
+weights), ``padded_dims`` pads a shape's node and edge counts to a
+multiple of the mesh's size, and ``gnn_partitioned_step`` is the step of
+the JAX ``gnn_partitioned_bundle`` (DistGNN's cd-0): every rank runs the
+unchanged model loss on its own block of rows. The JAX bundles' all-axes
+row sharding of one graph (``gnn_train_bundle``) waits for the dry-run
+slice.
 """
 from __future__ import annotations
 
 import torch
 
 from ..data.sampler import subgraph_shape
+from ..dist.collectives import all_reduce
+from ..dist.sharding import ShardingPolicy
 from ..optim import AdamW
 
 MB_NODES, MB_EDGES = subgraph_shape(1024, (15, 10))
@@ -66,6 +75,90 @@ def gnn_train_step(loss_closure):
         model.zero_grad(set_to_none=True)
         return ({"params": model, "opt": opt, "step": state["step"] + 1},
                 {"loss": loss.detach()})
+
+    return train_step
+
+
+def pad_to(n: int, m: int) -> int:
+    """``n`` rounded up to a multiple of ``m``."""
+    return ((n + m - 1) // m) * m
+
+
+def gnn_policy(mesh) -> ShardingPolicy:
+    """Node and edge rows over every mesh axis (a GNN has no tensor-parallel
+    dimension, so "model" joins the data axes); weights replicated."""
+    return ShardingPolicy(mesh_axes=tuple(mesh.mesh_dim_names), fsdp=False,
+                          batch_over_all=True)
+
+
+def padded_dims(shape_info, mesh) -> tuple[int, int]:
+    """A shape's node and edge counts padded to a multiple of the mesh's
+    size (pad rows carry zero masks)."""
+    m = mesh.size()
+    return (pad_to(shape_info["n_nodes"], m),
+            pad_to(shape_info["n_edges"], m))
+
+
+def gnn_partitioned_step(local_loss, mesh):
+    """Partition-parallel GNN train step (DistGNN cd-0 style), the JAX
+    ``gnn_partitioned_bundle``'s step: ``train_step(state, batch) ->
+    (state, {"loss"})``.
+
+    ``batch`` maps names to the whole graph's arrays (tensors, the same on
+    every rank, on the host or on the card) in which the data pipeline has
+    laid the partitions out in blocks of rows: rank r of the mesh (its
+    coordinate over every axis, row-major) owns block r of every array, a
+    partition's nodes and its edges, triplets and labels, its indices
+    local to the block; an edge between partitions is dropped. Each rank
+    copies its own blocks to its weights' device. Each rank runs
+    ``local_loss(params, local_batch)`` (the unchanged model loss) on its
+    block; the loss is averaged over the ranks (JAX's ``pmean``), the
+    gradients of the replicated weights are the mean over the ranks (one
+    SUM all-reduce of them flattened, divided by the number of ranks), and
+    every rank applies the same ``OPTIMIZER`` update."""
+    names = mesh.mesh_dim_names
+    coord = mesh.get_coordinate()
+    n = mesh.size()
+    rank = 0
+    for a in gnn_policy(mesh).data_axes:
+        i = names.index(a)
+        rank = rank * mesh.size(i) + coord[i]
+    groups = [mesh.get_group(i) for i in range(mesh.ndim)
+              if mesh.size(i) > 1]
+
+    def mean(t):
+        for g in groups:
+            t = all_reduce(t, g)
+        return t / n
+
+    def block(t, device):
+        if t.shape[0] % n:
+            raise ValueError(f"{t.shape[0]} rows do not split into {n} "
+                             f"partitions")
+        rows = t.shape[0] // n
+        return t[rank * rows:(rank + 1) * rows].to(device)
+
+    def train_step(state, batch):
+        model = state["params"]
+        device = next(model.parameters()).device
+        loss = local_loss(model, {k: block(v, device)
+                                  for k, v in batch.items()})
+        loss.backward()
+        params = list(model.parameters())
+        with torch.no_grad():
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in params]
+            flat = mean(torch.cat([g.reshape(-1).float() for g in grads]))
+            for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+                g.copy_(part.view_as(g))
+            for p, g in zip(params, grads):
+                p.grad = g
+            grads = model.tree(lambda p: p.grad)
+            opt = OPTIMIZER.update(model.tree(), grads, state["opt"])[1]
+            loss = mean(loss.detach().float().clone())
+        model.zero_grad(set_to_none=True)
+        return ({"params": model, "opt": opt, "step": state["step"] + 1},
+                {"loss": loss})
 
     return train_step
 

@@ -10,7 +10,7 @@ import torch
 from ..models.common import require_device
 from ..models.gnn import graphcast as M
 from ..models.gnn.common import to_device
-from .gnn_common import gnn_flops_info, gnn_train_step
+from .gnn_common import gnn_flops_info, gnn_partitioned_step, gnn_train_step
 
 BASE = M.GraphCastConfig(n_layers=16, d_hidden=512, n_vars=227,
                          remat="full", dtype=torch.bfloat16)
@@ -24,6 +24,32 @@ def train_step(cfg: M.GraphCastConfig):
     bundle trains ``BASE`` on every shape: the shape's nodes are the grid,
     its edges the processor's mesh edges."""
     return gnn_train_step(lambda p, b: M.loss_fn(cfg, p, b))
+
+
+def local_loss(cfg: M.GraphCastConfig):
+    """The loss of one partition's block of rows (the JAX ``_bundle``'s
+    ``local_loss``): ``grid_feat``, ``target`` and the g2m and m2g edges
+    (one a grid node) a row a grid node, ``mesh_pos`` a row a mesh node,
+    ``mesh_src``/``mesh_dst`` a row a mesh edge, indices local."""
+    def loss(p, b):
+        gb = M.GraphCastBatch(
+            grid_feat=b["grid_feat"], mesh_pos=b["mesh_pos"],
+            g2m_src=b["g2m_src"], g2m_dst=b["g2m_dst"],
+            g2m_feat=b["g2m_feat"], mesh_src=b["mesh_src"],
+            mesh_dst=b["mesh_dst"], mesh_feat_unused=None,
+            m2g_src=b["m2g_src"], m2g_dst=b["m2g_dst"],
+            m2g_feat=b["m2g_feat"], n_grid=b["grid_feat"].shape[0],
+            n_mesh=b["mesh_pos"].shape[0], target=b["target"])
+        return M.loss_fn(cfg, p, gb)
+    return loss
+
+
+def partitioned_train_step(cfg: M.GraphCastConfig, mesh):
+    """The partition-parallel (cd-0) train step of the JAX ``_bundle`` on
+    ``mesh``: ``step(state, batch)`` with ``batch`` a dict of the whole
+    graph's tensors laid out in partition blocks
+    (``gnn_common.gnn_partitioned_step``)."""
+    return gnn_partitioned_step(local_loss(cfg), mesh)
 
 
 def _smoke(device="cuda"):

@@ -601,4 +601,35 @@ class ChunkScheduler:
         self._merge_and_checkpoint(state, cid, counts, regs, stats, faults)
 
 
-__all__ = ["ChunkScheduler", "ChunkStats", "FaultInjector", "WorkerFailure"]
+# --- compressed collectives ---------------------------------------------------
+
+def compressed_psum(x, group, error, *, bits: int = 8):
+    """Quantized mean all-reduce with error feedback, over ``group``: a
+    process group, or a one-dimensional ``DeviceMesh`` such as
+    ``mesh["data"]`` (the mesh dimension that JAX's ``axis_name`` names).
+
+    Each rank adds its carried quantization ``error`` to ``x``, quantizes
+    to ``bits`` bits (symmetric, per-rank scale), reduces the decoded
+    values, and returns ``(mean, new_error)``. The residual is fed back on
+    the next call, so repeated reductions are unbiased (error-feedback SGD
+    compression); a one-off call is accurate to ~``2^-(bits-1)`` relative.
+    """
+    from .collectives import all_reduce
+
+    if hasattr(group, "get_group"):
+        group = group.get_group()
+    compensated = x + error
+    qmax = float((1 << (bits - 1)) - 1)
+    scale = torch.amax(torch.abs(compensated)) / qmax
+    scale = torch.clamp(scale, min=torch.finfo(x.dtype).tiny)
+    q = torch.clamp(torch.round(compensated / scale), -qmax, qmax)
+    decoded = (q * scale).to(x.dtype)
+    new_error = compensated - decoded
+    n = torch.distributed.get_world_size(group)
+    return all_reduce(decoded.clone(), group) / n, new_error
+
+
+from .sharding import ShardingPolicy, split_params  # noqa: E402
+
+__all__ = ["ChunkScheduler", "ChunkStats", "FaultInjector", "WorkerFailure",
+           "compressed_psum", "ShardingPolicy", "split_params"]

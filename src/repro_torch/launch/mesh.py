@@ -17,7 +17,8 @@ The collective backend follows from the layout:
 Ranks are processes, started by ``launch_ranks`` (the CLI's ``--mesh N``
 and the tests use it): each gets ``RANK``/``WORLD_SIZE`` and a ``file://``
 rendezvous in a temporary directory, so no TCP port is picked and nothing
-touches the network. A process that was not started by ``launch_ranks``
+touches the network. ``make_host_mesh`` builds the models' 2-D
+``("data", "model")`` mesh over the same ranks. A process that was not started by ``launch_ranks``
 forms a group of one rank. Every group is created with an explicit
 ``timeout``, and the launcher fails the whole run when any rank exits
 nonzero or outlives its deadline: a rank that dies before a collective
@@ -121,6 +122,24 @@ def make_assessment_mesh(devices: int = 0, *, device="cuda"):
         raise ValueError(f"devices must be in [1, {avail}], got {n}")
     return DeviceMesh(torch.device(device).type, list(range(n)),
                       mesh_dim_names=("data",))
+
+
+def make_host_mesh(model: int = 1, *, device="cuda"):
+    """Small 2-D mesh over every rank of the process group (the models'
+    mesh in tests and examples): a ``DeviceMesh`` named ``("data",
+    "model")`` of shape ``(world // model, model)``, rank ``r`` at
+    ``(r // model, r % model)``. ``init_ranks`` joins the group first if
+    needed; a world size that ``model`` does not divide raises
+    ``ValueError``."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    init_ranks(device)
+    n = dist.get_world_size()
+    if model < 1 or n % model:
+        raise ValueError(f"model={model} does not divide {n} ranks")
+    return DeviceMesh(torch.device(device).type,
+                      torch.arange(n).reshape(n // model, model),
+                      mesh_dim_names=("data", "model"))
 
 
 def data_axes(mesh) -> tuple[str, ...]:

@@ -33,26 +33,32 @@ class AdamW:
     state_dtype: Any = torch.float32
 
     def init(self, params) -> dict:
-        """Zero moments shaped like ``params``, on their devices."""
+        """Zero moments shaped like ``params``, on their devices (a
+        ``DTensor`` weight's moments are ``DTensor``s placed like it)."""
         def zeros(p):
-            return torch.zeros(p.shape, dtype=self.state_dtype,
-                               device=p.device)
+            return torch.zeros_like(p, dtype=self.state_dtype,
+                                    requires_grad=False)
         count = torch.zeros((), dtype=torch.int32,
                             device=next(tree_leaves(params)).device)
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
                 "count": count}
 
     @torch.no_grad()
-    def update(self, params, grads, state):
-        """One AdamW step: (params, state), both written in place."""
+    def update(self, params, grads, state, *, gnorm=None):
+        """One AdamW step: (params, state), both written in place.
+
+        ``gnorm``: the global norm of the gradients, when ``grads`` hold
+        only this rank's shards of them (the caller reduces it over the
+        mesh); by default it is the norm of ``grads``."""
         count = state["count"] + 1
         lr = self.lr(count) if callable(self.lr) else self.lr
         leaves = list(zip(tree_leaves(params), tree_leaves(grads),
                           tree_leaves(state["m"]), tree_leaves(state["v"])))
         scale = None
         if self.grad_clip:
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                                   for _, g, _, _ in leaves))
+            if gnorm is None:
+                gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                       for _, g, _, _ in leaves))
             scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
         c1 = 1 - torch.pow(torch.tensor(self.b1, device=count.device),
                            count.float())
