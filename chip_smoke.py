@@ -194,7 +194,9 @@ Phases (one JSON line each, plus the last lines described below):
    rotation and a translation of the positions, float32 within 2e-3 (the
    JAX smoke's bound), bf16 reported; (c) ``train-gnn-remat-<arch>``:
    gatedgcn and graphcast, remat full against none beside none against
-   none, float32 each leaf within ``F32_TOL``; (d)
+   none, all with torch's deterministic algorithms on (``in_fixed_order``:
+   ``index_add_`` sums in index order), float32 each leaf within
+   ``F32_TOL``; (d)
    ``train-gnn-<arch>-<shape>``: gatedgcn, dimenet, equiformer-v2 and
    graphcast at BASE width and depth through their configs' train steps
    (AdamW lr 1e-3, no weight decay) for 3 steps on full_graph_sm,
@@ -207,7 +209,10 @@ Phases (one JSON line each, plus the last lines described below):
    seconds; the minibatch_lg run of each architecture also one step under
    ``torch.profiler``.
 
-12. mesh-models — the models sharded over four ``gloo`` ranks sharing
+12. mesh-models (run right after phase 2: this process only waits on its
+   ranks, so a thread synthesizes phase 3's rows on the host meanwhile;
+   the ``data`` line gives the synthesis its own seconds) — the models
+   sharded over four ``gloo`` ranks sharing
    the card (child processes of ``chip_smoke.py --mesh-models-rank``), on
    a (data 2, model 2) ``make_host_mesh`` with ``ShardingPolicy(fsdp=True)``
    (``dist.sharding``, ``dist.collectives``; plain torch, no scan kernel):
@@ -220,12 +225,12 @@ Phases (one JSON line each, plus the last lines described below):
    the one rank would pick otherwise must be a near-tie,
    ``MM_ROUTE_GAP``), relative L2 ``MM_REL_L2``; 3 float32 AdamW steps at
    batch 4 × 4,096 (train_4k's 256 cut) against one rank's with
-   ``grad_accum`` doubled: the first step (its routes replayed too) in
-   loss and aux within ``MM_LOSS_RTOL`` and in the moments after it,
-   every leaf gathered on the host, within tests/test_torch_train.py's
-   tolerances; the later steps' losses reported (Adam's sign steps on
-   gradients that tie to the last bits part the weights); one bf16 step
-   at the config's capacity 1.25 for its time. Per rank: each call's ms beside the ms in
+   ``grad_accum`` doubled: every step, each with its own routes
+   replayed, in loss and aux within ``MM_LOSS_RTOL`` and in the moments
+   after it within tests/test_torch_train.py's tolerances, every leaf
+   (each rank's shards kept in memory, ``MomentShards``, and compared on
+   the card with the same slices of the one rank's); one bf16 step at the config's
+   capacity 1.25 for its time. Per rank: each call's ms beside the ms in
    the model's collectives, peak bytes. (b) ``mesh-models-psum``:
    ``compressed_psum`` on card tensors over the four ranks (one call
    within 5%, twenty closer). (c) ``mesh-models-checkpoint``: part of the
@@ -236,9 +241,27 @@ Phases (one JSON line each, plus the last lines described below):
    nodes, 168,960 uniform edges), each graph in four contiguous blocks,
    cut edges dropped: float32 at BASE for DimeNet and GraphCast, 3 AdamW
    steps, the first held to each block's loss run on one rank and
-   averaged (loss and first moment); EquiformerV2 in float32 at
+   averaged (loss and first moment), the checked steps on both sides
+   ``in_fixed_order``; EquiformerV2 in float32 at
    ``EQ_CHECK_LAYERS`` layers for that check, then 3 steps at BASE (bf16).
    ``ogb_products`` stays cut: one card holds every partition.
+
+13. dryrun — the dry-run registry (``repro_torch.configs``,
+   ``launch/dryrun.py``): (a) ``python -m repro_torch.launch.dryrun
+   --no-subprocess`` in a process of its own (CPU only, torch's fake
+   process group) over all 88 (arch × shape × mesh) cells: 80 ``OK``, 8
+   ``SKIP``, no ``FAIL``; one ``dryrun-cell`` line each with the
+   arguments' bytes a rank, and the largest beside the card's memory. (b)
+   each of the 11 archs' ``smoke(device="cuda")``: finite losses, the
+   paper's 16 metrics in one pass. (c) each ``dist-quality-assessment``
+   shape on both production meshes: one rank's share of its rows
+   (``synth_encoded(rows, seed=3)``, 16,191 to 5,050,523 rows) through
+   the bundle's ``fn`` (``fused_scan`` on the card, then the reduce over
+   the fake mesh), counters and registers bit-identical to the plain
+   backend on the card; the kernel timed (CUDA events) through its
+   wrapper and launched alone, beside rows × 52 B over 3.35 TB/s. The
+   launch counts are set to 0 before (b) and read after (c): one
+   ``fused_scan`` a scan (the smoke's and 8 cells').
 
 Then one ``scan-kernels`` line: per compiled plan, the NVRTC compile
 time, ptxas' report (registers, shared memory, spills), the resident
@@ -250,8 +273,9 @@ line, and as the last line ``{"ok": true, "device": {...}}``. Any
 mismatch or exception exits nonzero before that line.
 
 ``python3 chip_smoke.py --train-lm`` runs phase 10 alone,
-``--train-gnn`` phase 11 alone and ``--mesh-models`` phase 12 alone, then
-the card's line. ``python3 chip_smoke.py --lm-init-witness`` runs none of that: it serves
+``--train-gnn`` phase 11 alone, ``--mesh-models`` phase 12 alone and
+``--dryrun`` phase 13 alone, then the card's line.
+``python3 chip_smoke.py --lm-init-witness`` runs none of that: it serves
 Qwen2.5-14B at all 48 layers in float32 and in bf16, with the JAX init's
 weights as drawn and at fan-in scale, and prints for each the first
 layer's attention score statistics and the decode steps' agreement with
@@ -259,6 +283,7 @@ a prefill of the served sequence (the measurement behind ``fan_in_qkv``).
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -305,8 +330,10 @@ from repro_torch.kernels.hll import ops as hops, ref as href  # noqa
 from repro_torch.kernels.qap_count import ops as qops, ref as qref  # noqa
 from repro_torch.configs import (LM_ARCHS, LM_SHAPES,  # noqa: E402
                                  DIN_SHAPES, GNN_ARCHS, GNN_SHAPES, din_cfg,
-                                 equiformer_v2_cfg, granite_moe_1b)
-from repro_torch.configs import gnn_common  # noqa: E402
+                                 dimenet_cfg, equiformer_v2_cfg,
+                                 granite_moe_1b)
+from repro_torch import configs  # noqa: E402
+from repro_torch.configs import gnn_common, paper_qa  # noqa: E402
 from repro_torch.data import sampler  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
@@ -3063,20 +3090,47 @@ def gnn_equivariance(device) -> dict:
             "tol": EQUIVARIANCE_TOL, **out}
 
 
+@contextlib.contextmanager
+def in_fixed_order():
+    """torch's deterministic algorithms for a check: on the card
+    ``index_add_`` then sums each row's terms in index order (as XLA's
+    ``segment_sum``) instead of with atomics, so two runs of one float32
+    step agree bit for bit. With atomics a deep GNN's spread jumps between
+    levels from one pair of runs to the next (GraphCast's 16 layers: from
+    ~3e-7 to ~5e-4 of a leaf's largest magnitude), so a bound read off one
+    pair does not hold the next."""
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    # the workspace torch already gives cuBLAS on Hopper; deterministic
+    # algorithms refuse a matmul unless it is named
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        if cublas is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+
+
 def gnn_remat_check(arch: str, device) -> dict:
     """One backward pass with remat ``full`` against ``none`` at BASE
     width and depth in float32 on the molecule cut, beside a second
-    ``none`` run (the card's own spread: ``index_add_`` adds in varying
-    order): remat must add nothing beyond it, each leaf within
-    ``F32_TOL`` or ``GNN_REMAT_SPREAD`` times the spread, whichever is
-    more."""
+    ``none`` run, all three ``in_fixed_order``: remat must add nothing
+    beyond the runs' own spread (none once every sum has a fixed order),
+    each leaf within ``F32_TOL`` or ``GNN_REMAT_SPREAD`` times the spread,
+    whichever is more."""
     cfg = dataclasses.replace(gnn_config(arch, "molecule"),
                               dtype=torch.float32)
     model = gnn_init(arch, cfg, device)
     batch = gnn_check_batch(arch, cfg, device)
-    runs = {r: gnn_grads(arch, dataclasses.replace(
-        cfg, remat=r.split("_")[0]), model, batch)[0]
-        for r in ("none", "full", "none_again")}
+    with in_fixed_order():
+        runs = {r: gnn_grads(arch, dataclasses.replace(
+            cfg, remat=r.split("_")[0]), model, batch)[0]
+            for r in ("none", "full", "none_again")}
     want = runs["none"]
     errs = {k: gnn_grad_errs(runs[k], want) for k in ("full", "none_again")}
     worst = {k: max(e, key=e.get) for k, e in errs.items()}
@@ -3088,6 +3142,7 @@ def gnn_remat_check(arch: str, device) -> dict:
     _free()
     return {"depth": gnn_layers(cfg), "graphs": GNN_CHECK_GRAPHS,
             "tol": F32_TOL, "spread_factor": GNN_REMAT_SPREAD,
+            "fixed_order": True,
             "full_vs_none_leaf_max_rel_err": leaf["full"],
             "full_vs_none_worst_leaf": worst["full"],
             "none_vs_none_leaf_max_rel_err": leaf["none_again"],
@@ -3169,10 +3224,20 @@ MM_GNN = (("dimenet", "full_graph_sm", "f32", 3, True),
 EQ_CHECK_LAYERS = 6
 
 
+def shard_starts(x, coord, local_shape) -> list:
+    """Where the shard of ``DTensor`` ``x`` at mesh coordinate ``coord``
+    starts in the whole tensor, dimension by dimension. A tensor
+    dimension is sharded over one mesh dimension at most, evenly."""
+    starts = [0] * x.ndim
+    for i, pl in enumerate(x.placements):
+        if pl.is_shard():
+            starts[pl.dim] = coord[i] * local_shape[pl.dim]
+    return starts
+
+
 def host_full(x):
     """Rank 0: a ``DTensor``'s whole value on the host, from every rank's
-    shard sent to it (``dist.gather``); the other ranks: None. A tensor
-    dimension is sharded over one mesh dimension at most."""
+    shard sent to it (``dist.gather``); the other ranks: None."""
     loc = x.to_local().detach().cpu().contiguous()
     mesh = x.device_mesh
     rank, world = dist.get_rank(), dist.get_world_size()
@@ -3184,12 +3249,9 @@ def host_full(x):
     full = torch.empty(x.shape, dtype=loc.dtype)
     for r, part in enumerate(parts):
         coord = [int(c) for c in (mesh.mesh == r).nonzero()[0]]
-        idx = [slice(None)] * x.ndim
-        for i, pl in enumerate(x.placements):
-            if pl.is_shard():
-                n = part.shape[pl.dim]
-                idx[pl.dim] = slice(coord[i] * n, (coord[i] + 1) * n)
-        full[tuple(idx)] = part
+        starts = shard_starts(x, coord, part.shape)
+        full[tuple(slice(a, a + n) for a, n in zip(starts, part.shape))] = \
+            part
     return full
 
 
@@ -3201,6 +3263,99 @@ def ordered(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in ordered(v)]
     return [tree]
+
+
+def pinned_floats(n: int):
+    """A page-locked float32 host buffer of ``n`` elements."""
+    return torch.empty(n, dtype=torch.float32, pin_memory=True)
+
+
+def write_all(fd: int, t, offset: int) -> None:
+    """Host tensor ``t``'s bytes into file ``fd`` at ``offset``."""
+    mv = memoryview(t.numpy()).cast("B")
+    while mv:
+        n = os.pwrite(fd, mv, offset)
+        mv, offset = mv[n:], offset + n
+
+
+def read_all(fd: int, t, offset: int) -> None:
+    """``t.nbytes`` bytes of file ``fd`` at ``offset`` into host tensor
+    ``t``."""
+    mv = memoryview(t.numpy()).cast("B")
+    pos = 0
+    while pos < len(mv):
+        n = os.preadv(fd, [mv[pos:]], offset + pos)
+        check(n > 0, f"short read of the moments at {offset + pos}")
+        pos += n
+
+
+class MomentShards:
+    """Each rank's shards of AdamW's two moments after every train step,
+    kept where the one-rank reference reads them: a ``memfd`` a rank (in
+    memory, no disk), which rank 0 opens through ``/proc``; no gloo
+    gather, which moved these 10.6 GB a step at about 0.35 GB/s (22-24 s a
+    step on an NVIDIA H100 80GB HBM3 at 700 W). The bytes go through a
+    page-locked buffer with ``pwrite``/``preadv``: mapping the memfd and
+    copying into it page by page took 13-15 s a step. Float32 moments,
+    laid out step by step, ``m`` then ``v``, each leaf's local shard in
+    ``ordered`` order."""
+
+    def __init__(self, opt_state, steps: int):
+        leaves = ordered(opt_state["m"])
+        coord = leaves[0].device_mesh.get_coordinate()
+        self.layout = [(shard_starts(x, coord, x.to_local().shape),
+                        tuple(x.to_local().shape)) for x in leaves]
+        self.numel = sum(math.prod(shape) for _, shape in self.layout)
+        self.fd = os.memfd_create("mesh-models-moments")
+        os.ftruncate(self.fd, steps * 2 * self.numel * 4)
+        self.stage = pinned_floats(max(math.prod(shape)
+                                       for _, shape in self.layout))
+
+    def save(self, opt_state, step: int) -> None:
+        at = step * 2 * self.numel * 4
+        for k in ("m", "v"):
+            for x in ordered(opt_state[k]):
+                loc = x.to_local()
+                check(loc.dtype == torch.float32, f"moment dtype {loc.dtype}")
+                part = self.stage[:loc.numel()]
+                part.copy_(loc.reshape(-1))
+                write_all(self.fd, part, at)
+                at += part.nbytes
+
+    def share(self) -> list | None:
+        """Rank 0: every rank's (file, layout, count), opened to read; the
+        other ranks: None. Every rank calls it, and may exit after it."""
+        info = [None] * dist.get_world_size()
+        dist.all_gather_object(info, (os.getpid(), self.fd, self.layout,
+                                      self.numel))
+        out = None
+        if dist.get_rank() == 0:
+            out = [(os.open(f"/proc/{pid}/fd/{fd}", os.O_RDONLY), layout,
+                    numel) for pid, fd, layout, numel in info]
+        dist.barrier()
+        return out
+
+
+def moments_tol_ratio(shards: list, opt_state, step: int) -> dict:
+    """The one-rank reference's moments (on the card) against every rank's
+    shards of the mesh's after ``step`` (``MomentShards.share``), compared
+    on the card slice by slice: the largest ``within_train_tol`` of each
+    moment."""
+    out = {}
+    stage = pinned_floats(max(math.prod(shape) for _, layout, _ in shards
+                              for _, shape in layout))
+    for fd, layout, numel in shards:
+        at = step * 2 * numel * 4
+        for k in ("m", "v"):
+            for (starts, shape), want in zip(layout, ordered(opt_state[k])):
+                part = stage[:math.prod(shape)]
+                read_all(fd, part, at)
+                at += part.nbytes
+                idx = tuple(slice(a, a + d) for a, d in zip(starts, shape))
+                out[k] = max(out.get(k, 0.0), within_train_tol(
+                    part.view(shape).cuda(), want[idx],
+                    float(want.detach().abs().max())))
+    return out
 
 
 def timed(fn):
@@ -3218,11 +3373,14 @@ def timed(fn):
         "bytes": st["bytes"]}
 
 
-def within_train_tol(got, want) -> float:
+def within_train_tol(got, want, leaf_max=None) -> float:
     """The largest |got - want| over tests/test_torch_train.py's allowed
-    difference (``MM_GRAD_*``): at most 1 passes."""
+    difference (``MM_GRAD_*``): at most 1 passes. ``leaf_max`` is the
+    largest magnitude of the whole leaf where ``want`` is a slice of it."""
     got, want = got.float(), want.float()
-    allowed = (MM_GRAD_ATOL + MM_GRAD_LEAF * float(want.abs().max())
+    if leaf_max is None:
+        leaf_max = float(want.abs().max())
+    allowed = (MM_GRAD_ATOL + MM_GRAD_LEAF * leaf_max
                + MM_GRAD_RTOL * want.abs())
     return float(((got - want).abs() / allowed).max())
 
@@ -3333,20 +3491,21 @@ def mm_lm_rank() -> dict:
     state = {"params": sm, "opt": opt.init(sm.tree()),
              "step": torch.zeros((), dtype=torch.int32, device="cuda")}
     step = tf_mod.make_train_step(cfg, opt, mesh=mesh, policy=pol)
-    steps, routes = [], []
+    steps = []
+    keep["train_routes"] = []
+    shards = MomentShards(state["opt"], len(inp["train"]))
     for i, t in enumerate(inp["train"]):
-        with (recorded_routes(routes, sort=False) if i == 0
-              else contextlib.nullcontext()):
+        routes: list = []
+        with recorded_routes(routes, sort=False):
             (state, m), ms, coll = timed(lambda: step(state, {"tokens": t}))
+        keep["train_routes"].append(gathered_routes(routes, mesh))
+        del routes
+        t0 = time.perf_counter()
+        shards.save(state["opt"], i)
         steps.append({"loss": float(m["loss"]), "aux": float(m["aux_loss"]),
-                      "ms": ms, "collectives": coll})
-        if i == 0:
-            keep["train_routes"] = gathered_routes(routes, mesh)
-            del routes
-            t0 = time.perf_counter()
-            keep["m"] = [host_full(x) for x in ordered(state["opt"]["m"])]
-            keep["v"] = [host_full(x) for x in ordered(state["opt"]["v"])]
-            out["moments_gather_s"] = time.perf_counter() - t0
+                      "ms": ms, "collectives": coll,
+                      "moments_save_s": time.perf_counter() - t0})
+    keep["moments"] = shards.share()
     out["train"] = steps
     keep["steps"] = [(s["loss"], s["aux"]) for s in steps]
     out["moments_placed"] = all(
@@ -3452,19 +3611,23 @@ def mm_lm_reference(cfg, inp, keep) -> dict:
     state = {"params": masters, "opt": opt.init(masters.tree()),
              "step": torch.zeros((), dtype=torch.int32, device="cuda")}
     step = tf_mod.make_train_step(acfg, opt)
-    losses, stats = [], {}
-    forced = microbatch_calls(keep["train_routes"], cfg.grad_accum)
+    losses = []
+    out.update(train_routes=[], m_tol_ratio_max=[], v_tol_ratio_max=[])
     for i, t in enumerate(inp["train"]):
-        with (replayed_routes(forced, stats) if i == 0
-              else contextlib.nullcontext()):
+        stats: dict = {}
+        with replayed_routes(microbatch_calls(keep["train_routes"][i],
+                                              cfg.grad_accum), stats):
             state, m = step(state, {"tokens": t})
         losses.append((float(m["loss"]), float(m["aux_loss"])))
-        if i == 0:
-            out["train_routes"] = dict(stats)
-            for k in ("m", "v"):
-                out[f"{k}1_tol_ratio_max"] = max(
-                    within_train_tol(g, w.cpu())
-                    for g, w in zip(keep[k], ordered(state["opt"][k])))
+        out["train_routes"].append(stats)
+        t0 = time.perf_counter()
+        for k, r in moments_tol_ratio(keep["moments"], state["opt"],
+                                      i).items():
+            out[f"{k}_tol_ratio_max"].append(r)
+        out.setdefault("moments_compare_s", []).append(
+            time.perf_counter() - t0)
+    for fd, _, _ in keep["moments"]:
+        os.close(fd)
     out["loss_rel"] = [abs(g[0] - w[0]) / abs(w[0])
                        for g, w in zip(keep["steps"], losses)]
     out["aux_rel_steps"] = [abs(g[1] - w[1]) / abs(w[1])
@@ -3561,9 +3724,10 @@ def mm_gnn_config(arch: str, shape: str, variant: str):
 
 def mm_gnn_rank() -> dict:
     """One rank of the partition-parallel GNN runs (``MM_GNN``): the graph
-    on the host, this rank's block copied to the card by the step; rank 0
-    keeps the first moment after a checked run's first step (0.1 × the
-    clipped mean gradient) and then runs the blockwise reference
+    on the host, this rank's block copied to the card by the step; a
+    checked run's steps go ``in_fixed_order``; rank 0 keeps the first
+    moment after a checked run's first step (0.1 × the clipped mean
+    gradient) and then runs the blockwise reference
     (``mm_gnn_reference``)."""
     mesh = mesh_mod.make_host_mesh(MM_MODEL, device="cuda")
     rank = dist.get_rank()
@@ -3577,13 +3741,15 @@ def mm_gnn_rank() -> dict:
         state = gnn_common.gnn_train_state(gnn_init(arch, cfg, "cuda"))
         step = GNN_ARCHS[arch].partitioned_train_step(cfg, mesh)
         runs = []
-        for i in range(n_steps):
-            (state, m), ms, coll = timed(lambda: step(state, batch))
-            runs.append({"loss": float(m["loss"]), "ms": ms,
-                         "collectives": coll})
-            if i == 0 and checked and rank == 0:
-                keep[arch] = ([x.detach().to("cpu", copy=True) for x in
-                               ordered(state["opt"]["m"])], runs[0]["loss"])
+        with (in_fixed_order() if checked else contextlib.nullcontext()):
+            for i in range(n_steps):
+                (state, m), ms, coll = timed(lambda: step(state, batch))
+                runs.append({"loss": float(m["loss"]), "ms": ms,
+                             "collectives": coll})
+                if i == 0 and checked and rank == 0:
+                    keep[arch] = ([x.detach().to("cpu", copy=True)
+                                   for x in ordered(state["opt"]["m"])],
+                                  runs[0]["loss"])
         out[f"{arch}-{variant}"] = {
             "shape": shape, "dtype": str(cfg.dtype).split(".")[-1],
             "layers": gnn_layers(cfg), "steps": runs,
@@ -3601,13 +3767,13 @@ def mm_gnn_rank() -> dict:
 
 
 def mm_gnn_reference(arch: str, shape: str, variant: str, kept) -> dict:
-    """The first step of ``arch`` on one rank, twice: each partition's
-    ``local_loss`` in turn, the losses and gradients averaged, one AdamW
-    update. The mesh's loss against the first, and its first moment
-    (each leaf over its largest magnitude, ``gnn_grad_errs``' floor)
-    within ``F32_TOL`` or ``GNN_REMAT_SPREAD`` times the two one-rank
-    runs' own spread (``index_add_`` adds in varying order; GraphCast's
-    16 layers carry it to ~5e-4, phase 11), whichever is more."""
+    """The first step of ``arch`` on one rank, twice, ``in_fixed_order``
+    as the mesh's checked steps: each partition's ``local_loss`` in turn,
+    the losses and gradients averaged, one AdamW update. The mesh's loss
+    against the first, and its first moment (each leaf over its largest
+    magnitude, ``gnn_grad_errs``' floor) within ``F32_TOL`` or
+    ``GNN_REMAT_SPREAD`` times the two one-rank runs' own spread,
+    whichever is more."""
     cfg = mm_gnn_config(arch, shape, variant)
     _free()
     batch = {k: torch.from_numpy(v) for k, v in
@@ -3627,8 +3793,9 @@ def mm_gnn_reference(arch: str, shape: str, variant: str, kept) -> dict:
         opt = gnn_common.OPTIMIZER.update(model.tree(), grads,
                                           state["opt"])[1]
         return total, dict(enumerate(ordered(opt["m"])))
-    total, want = first_step()
-    _, again = first_step()
+    with in_fixed_order():
+        total, want = first_step()
+        _, again = first_step()
     got = {i: g.cuda() for i, g in enumerate(kept[0])}
     err = max(gnn_grad_errs(got, want).values())
     spread = max(gnn_grad_errs(again, want).values())
@@ -3685,23 +3852,24 @@ def phase_mesh_models(smi: str) -> None:
     for k in ("forward_rel_l2", "prefill_rel_l2", "decode_rel_l2_max"):
         check(ref[k] <= MM_REL_L2, f"mesh granite {k} {ref[k]:.3g}")
     check(ref["aux_rel"] <= MM_LOSS_RTOL, f"aux {ref['aux_rel']:.3g}")
-    for k in ("m1_tol_ratio_max", "v1_tol_ratio_max"):
-        check(ref[k] <= 1.0, f"mesh granite {k} {ref[k]:.3g}")
-    for k in ("routes", "train_routes"):
-        check(ref[k]["calls"] == ref[k]["recorded"],
-              f"every recorded route replayed once: {ref[k]}")
-    check(ref["routes"]["gap_max"] <= MM_ROUTE_GAP,
-          f"routes the one rank would pick otherwise are near-ties: "
-          f"{ref['routes']}")
-    # the first step, its routes replayed, is held; after it the weights
-    # differ by Adam's sign steps on gradients that tie to the last bits,
-    # and the later losses are reported
-    check(ref["loss_rel"][0] <= MM_LOSS_RTOL
-          and ref["aux_rel_steps"][0] <= MM_LOSS_RTOL,
-          f"mesh granite first step: loss {ref['loss_rel'][0]:.3g}, aux "
-          f"{ref['aux_rel_steps'][0]:.3g}")
-    check(ref["train_routes"]["gap_max"] <= MM_ROUTE_GAP,
-          f"the first step's routes are near-ties: {ref['train_routes']}")
+    for k, st in [("serving", ref["routes"])] + [
+            (f"train step {i + 1}", st)
+            for i, st in enumerate(ref["train_routes"])]:
+        check(st["calls"] == st["recorded"],
+              f"every recorded route replayed once: {k} {st}")
+        check(st["gap_max"] <= MM_ROUTE_GAP,
+              f"routes the one rank would pick otherwise are near-ties: "
+              f"{k} {st}")
+    # every step, each with its own routes replayed: the loss, aux and
+    # both moments after it
+    for i in range(MM_TRAIN_STEPS):
+        check(ref["loss_rel"][i] <= MM_LOSS_RTOL
+              and ref["aux_rel_steps"][i] <= MM_LOSS_RTOL,
+              f"mesh granite step {i + 1}: loss {ref['loss_rel'][i]:.3g}, "
+              f"aux {ref['aux_rel_steps'][i]:.3g}")
+        for k in ("m_tol_ratio_max", "v_tol_ratio_max"):
+            check(ref[k][i] <= 1.0,
+                  f"mesh granite step {i + 1} {k} {ref[k][i]:.3g}")
     check(all(np.isfinite(r["train_bf16"]["loss"]) for r in lm),
           "the bf16 step's loss is finite")
     check(lm[0]["psum_rel1"] < 0.05 and
@@ -3736,6 +3904,140 @@ def phase_mesh_models(smi: str) -> None:
           "seconds": time.perf_counter() - t_phase})
 
 
+DRYRUN_OUT = os.path.join(BUILD, "dryrun_chip", "cells.jsonl")
+DRYRUN_CELLS = {"OK": 80, "SKIP": 8, "FAIL": 0}
+DRYRUN_TIMEOUT = 300.0
+
+
+def dryrun_paper_cells() -> list:
+    """The ``dist-quality-assessment`` cells: (shape, mesh kind, one rank's
+    rows), the shape's triples padded to the mesh and split over it."""
+    return [(shape, mk, paper_qa.pad_to(info["n_triples"], world) // world)
+            for shape, info in paper_qa.QA_SHAPES.items()
+            for mk, world in (("single", 256), ("multi", 512))]
+
+
+def phase_dryrun(smi: str) -> int:
+    """Phase 13 (module docstring): the dry-run registry. Returns the
+    ``fused_scan`` launches of its path ((b) and (c))."""
+    t_phase = time.perf_counter()
+    # (a) every cell on the fake group, in a process of its own, CPU only,
+    # while (b) and (c) run here
+    shutil.rmtree(os.path.dirname(DRYRUN_OUT), ignore_errors=True)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun",
+         "--no-subprocess", "--out", DRYRUN_OUT],
+        env={**SRC_ENV, "CUDA_VISIBLE_DEVICES": ""},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        # (b) each arch's smoke on the card, then (c) one rank's share of
+        # each paper cell through the bundle's fn; the launch counts of
+        # both set to 0 just before and read just after
+        planes = {}
+        for shape, mk, rows in dryrun_paper_cells():
+            planes[shape, mk] = torch.from_numpy(
+                synth_encoded(rows, seed=3).planes).cuda()
+        torch.cuda.synchronize()
+        smokes, outs = {}, {}
+        K.reset_launches()
+        for name, spec in configs.REGISTRY.items():
+            t = time.perf_counter()
+            smokes[name] = {**spec.smoke(device="cuda"),
+                            "seconds": time.perf_counter() - t}
+        for shape, mk, rows in dryrun_paper_cells():
+            mesh = mesh_mod.make_production_mesh(multi_pod=mk == "multi")
+            try:
+                bundle = paper_qa._bundle(shape, mesh, multi_pod=mk == "multi")
+                outs[shape, mk] = bundle.fn(planes[shape, mk])
+            finally:
+                mesh_mod.close_ranks()
+        torch.cuda.synchronize()
+        launched = dict(K.LAUNCHES)
+        check(launched == {"qap_count": 0, "hll_fold": 0,
+                           "fused_scan": 1 + len(outs)},
+              f"dry-run phase: one fused_scan a paper scan and the paper "
+              f"smoke, nothing else: {launched}")
+        for name, r in smokes.items():
+            vals = [v for k, v in r.items() if k not in ("values", "seconds")]
+            check(all(np.isfinite(v) for v in vals),
+                  f"{name} smoke on the card: {r}")
+        check(smokes["dist-quality-assessment"]["metrics"] == 16,
+              "the paper's smoke gives 16 metrics in one pass")
+        emit({"phase": "dryrun-smokes", "card": smi,
+              "smokes": {k: {kk: vv for kk, vv in v.items() if kk != "values"}
+                         for k, v in smokes.items()}})
+
+        all_plan = plan(get_metrics(ALL_METRICS))
+        specs = all_plan.sketch_specs
+        cells = []
+        for (shape, mk), x in planes.items():
+            counts, regs = outs[shape, mk]
+            pc, pr = fref.fused_scan_torch(x, all_plan.program,
+                                           all_plan.n_counters, specs, MAIN_P)
+            same = (torch.equal(counts, pc.cpu().to(counts.dtype))
+                    and sorted(regs) == sorted(n for n, _ in specs)
+                    and all(torch.equal(regs[n], pr[n].cpu())
+                            for n, _ in specs))
+            check(same, f"paper cell {shape} {mk}: the bundle's fn equals "
+                  f"the plain backend on the card, counters and registers")
+            rows = x.shape[0]
+            bound_ms, bound_by = bound(rows, all_plan.program,
+                                       all_plan.n_counters, specs, MAIN_P)
+            launch = scan_launch(x, all_plan, specs, MAIN_P)[2]
+            cells.append({
+                "shape": shape, "mesh": mk, "rows": rows, "equal": same,
+                "ms": cuda_ms(lambda: fops.fused_scan(
+                    x, all_plan.program, all_plan.n_counters, specs,
+                    MAIN_P), 10),
+                "launch_ms": cuda_ms(launch, 10),
+                "plain_ms": cuda_ms(lambda: fref.fused_scan_torch(
+                    x, all_plan.program, all_plan.n_counters, specs,
+                    MAIN_P), 2),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bytes_ms": rows * 52 / MEM_BYTES_PER_S * 1e3})
+        emit({"phase": "dryrun-paper-cells", "card": smi, "cells": cells})
+        del planes, outs
+        torch.cuda.empty_cache()
+        out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"the dry-run exited {proc.returncode}: "
+          f"{out[-2000:]}")
+    with open(DRYRUN_OUT) as f:
+        recs = [json.loads(line) for line in f]
+    status = {k: sum(r["status"] == k for r in recs) for k in DRYRUN_CELLS}
+    for r in recs:
+        emit({"phase": "dryrun-cell", "arch": r["arch"], "shape": r["shape"],
+              "mesh": r["mesh"], "status": r["status"],
+              "argument_bytes": r.get("memory", {}).get("argument_bytes"),
+              **({"error": r["error"]} if r["status"] == "FAIL" else {})})
+    check(status == DRYRUN_CELLS and len(recs) == sum(DRYRUN_CELLS.values()),
+          f"dry-run cells: {status}")
+    big = max((r for r in recs if r["status"] == "OK"),
+              key=lambda r: r["memory"]["argument_bytes"])
+    emit({"phase": "dryrun", "card": smi, "cells": status,
+          "largest": {k: big[k] for k in ("arch", "shape", "mesh")},
+          "largest_argument_bytes": big["memory"]["argument_bytes"],
+          "card_total_memory": torch.cuda.get_device_properties(0)
+          .total_memory,
+          "fused_scan_launches": launched["fused_scan"],
+          "seconds": time.perf_counter() - t_phase})
+    return launched["fused_scan"]
+
+
+def dryrun_only() -> int:
+    """``--dryrun``: phase 13 alone, then the card's line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = train_mod.card_line()
+    phase_dryrun(smi)
+    print(smi, flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3751,12 +4053,23 @@ def main() -> int:
     limits = limit_plans()
     err = phase_kernels(all_plan, paper_plan, cover_plan, limits)
 
+    # -- 12. the models sharded over four ranks; this process only waits on
+    # them, so phase 3's rows are synthesized on the host meanwhile
+    def synth():
+        t = time.perf_counter()
+        return synth_encoded(FULL_ROWS, seed=3), time.perf_counter() - t
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        data = pool.submit(synth)
+        before = dict(K.LAUNCHES)
+        phase_mesh_models(smi)
+        check(K.LAUNCHES == before, "the sharded models launch no scan kernel")
+        tt, synth_s = data.result()
+
     # -- 3. the main path at full size ---------------------------------------
-    t = time.perf_counter()
-    tt = synth_encoded(FULL_ROWS, seed=3)
     emit({"phase": "data", "rows": tt.n_rows,
-          "planes_bytes": tt.planes.nbytes,
-          "synth_seconds": time.perf_counter() - t})
+          "planes_bytes": tt.planes.nbytes, "synth_seconds": synth_s,
+          "beside": "mesh-models"})
     launches = {k: 0 for k in KERNELS}
 
     def add(out):
@@ -3884,8 +4197,9 @@ def main() -> int:
     phase_models_din(smi)
     phase_train_lm(smi)
     phase_train_gnn(smi)
-    phase_mesh_models(smi)
     check(K.LAUNCHES == before, "the model phases launch no scan kernel")
+    # -- 13. the dry-run registry: every cell, every smoke, the paper cells
+    launches["fused_scan"] += phase_dryrun(smi)
 
     phase_scan_kernels(scan_kernel_labels(all_plan, paper_plan, cover_plan,
                                           limits))
@@ -3937,6 +4251,8 @@ if __name__ == "__main__":
         sys.exit(train_only(phase_train_lm))
     if sys.argv[1:] == ["--train-gnn"]:
         sys.exit(train_only(phase_train_gnn))
+    if sys.argv[1:] == ["--dryrun"]:
+        sys.exit(dryrun_only())
     if len(sys.argv) == 3 and sys.argv[1] == "--mesh-models-rank":
         sys.exit(mesh_models_rank(sys.argv[2]))
     if sys.argv[1:] == ["--mesh-models"]:

@@ -1,30 +1,42 @@
-"""Architecture configs of the port: the JAX package's ``FULL`` (the GNNs'
-``BASE``) and ``SMOKE`` configurations (``repro.configs``) with torch
-dtypes, and the shape sets they are served and trained at.
+"""Architecture configs of the port — importing this package registers
+all archs, as ``repro.configs`` does.
 
-``LM_ARCHS`` maps each LM architecture's name to its module, and
+``--arch <id>`` values: qwen2.5-14b, internlm2-20b, gemma3-12b,
+deepseek-v2-236b, granite-moe-1b-a400m, gatedgcn, dimenet, equiformer-v2,
+graphcast, din (+ the paper's own quality-assessment config in paper_qa).
+Each registers an ``ArchSpec``: its ``smoke(device=)``, its dry-run
+``bundle(shape, mesh, multi_pod)`` (``Bundle`` or ``Skip``) and
+``flops_info(shape)``; ``launch/dryrun.py`` runs every cell.
+
+Each config module holds the JAX package's ``FULL`` (the GNNs' ``BASE``)
+and ``SMOKE`` configurations with torch dtypes. For the launchers,
+``LM_ARCHS`` maps each LM architecture's name to its module and
 ``lm_config`` gives the train launcher's config of one at a scale;
 ``GNN_ARCHS`` maps each GNN architecture's name to its module (``BASE``,
 ``SMOKE``, ``train_step``, ``_smoke``, ``_flops``, and but for graphcast,
 which trains ``BASE`` on every shape, ``_cfg_for``; dimenet,
 equiformer-v2 and graphcast also ``local_loss`` and the partition-parallel
-``partitioned_train_step``). The registry of dry-run bundles waits for the
-dry-run slice.
+``partitioned_train_step``).
 """
 import dataclasses
 
-from . import (deepseek_v2_236b, dimenet_cfg, din_cfg, equiformer_v2_cfg,
-               gatedgcn_cfg, gemma3_12b, granite_moe_1b, graphcast_cfg,
-               internlm2_20b, qwen2_5_14b)
-from .gnn_common import GNN_SHAPES
+from .base import REGISTRY, ArchSpec, Bundle, Skip, get_arch
 
-# the JAX package's LM shape set (repro/configs/lm_common.py)
-LM_SHAPES = {
-    "train_4k": dict(kind="train", seq=4096, batch=256),
-    "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
-    "decode_32k": dict(kind="decode", seq=32768, batch=128),
-    "long_500k": dict(kind="decode", seq=524288, batch=1, seq_shard=True),
-}
+from . import qwen2_5_14b      # noqa: F401
+from . import internlm2_20b    # noqa: F401
+from . import gemma3_12b       # noqa: F401
+from . import deepseek_v2_236b  # noqa: F401
+from . import granite_moe_1b   # noqa: F401
+from . import gatedgcn_cfg     # noqa: F401
+from . import dimenet_cfg      # noqa: F401
+from . import equiformer_v2_cfg  # noqa: F401
+from . import graphcast_cfg    # noqa: F401
+from . import din_cfg          # noqa: F401
+from . import paper_qa         # noqa: F401
+from .gnn_common import GNN_SHAPES
+from .lm_common import LM_SHAPES
+
+ALL_ARCHS = tuple(REGISTRY)
 DIN_SHAPES = din_cfg.DIN_SHAPES
 
 LM_ARCHS = {m.FULL.name: m for m in (qwen2_5_14b, internlm2_20b, gemma3_12b,
@@ -46,5 +58,6 @@ def lm_config(arch: str, scale: str):
     return {"smoke": mod.SMOKE, "full": mod.FULL}[scale]
 
 
-__all__ = ["LM_SHAPES", "DIN_SHAPES", "GNN_SHAPES", "LM_ARCHS", "GNN_ARCHS",
+__all__ = ["REGISTRY", "ALL_ARCHS", "ArchSpec", "Bundle", "Skip", "get_arch",
+           "LM_SHAPES", "DIN_SHAPES", "GNN_SHAPES", "LM_ARCHS", "GNN_ARCHS",
            "lm_config", "din_cfg"]

@@ -4,10 +4,13 @@ d_ff_expert=1536 vocab=102400, 2 shared + 160 routed top-6
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from ..models.transformer import TransformerConfig
+from .base import ArchSpec, register
+from .lm_common import LM_SHAPES, lm_bundle, lm_flops_info, lm_smoke
 
 FULL = TransformerConfig(
     name="deepseek-v2-236b", n_layers=60, d_model=5120, n_heads=128,
@@ -31,3 +34,14 @@ SMOKE = dataclasses.replace(
     first_dense_layers=1, capacity_factor=2.0,
     dtype=torch.float32, param_dtype=torch.float32, remat="none",
     grad_accum=1)
+
+register(ArchSpec(
+    name="deepseek-v2-236b", family="lm", shape_names=tuple(LM_SHAPES),
+    smoke=functools.partial(lm_smoke, SMOKE),
+    bundle=lambda shape, mesh, multi_pod=False: lm_bundle(FULL, shape, mesh),
+    flops_info=functools.partial(lm_flops_info, FULL),
+    notes="MLA latent KV cache (512+64/token/layer) with weight-absorbed "
+          "decode; EP: 160 experts / 16-way model axis = 10 experts/shard, "
+          "shard_map dispatch. long_500k skipped: MLA compresses cache "
+          "STORAGE but attention is still dense over 524k positions.",
+))

@@ -4,10 +4,13 @@ vocab=262144 — 5:1 local:global interleave, 128k+ context
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from ..models.transformer import TransformerConfig
+from .base import ArchSpec, register
+from .lm_common import LM_SHAPES, lm_bundle, lm_flops_info, lm_smoke
 
 FULL = TransformerConfig(
     name="gemma3-12b", n_layers=48, d_model=3840, n_heads=16,
@@ -27,3 +30,14 @@ SMOKE = dataclasses.replace(
     d_model=64, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128,
     vocab_size=128, dtype=torch.float32, param_dtype=torch.float32,
     remat="none", grad_accum=1)
+
+register(ArchSpec(
+    name="gemma3-12b", family="lm", shape_names=tuple(LM_SHAPES),
+    smoke=functools.partial(lm_smoke, SMOKE),
+    bundle=lambda shape, mesh, multi_pod=False: lm_bundle(
+        FULL, shape, mesh, sub_quadratic=True),
+    flops_info=functools.partial(lm_flops_info, FULL),
+    notes="hybrid 5:1 local(1024-window):global — long_500k RUNS for this "
+          "arch (40/48 layers keep ring-buffer window caches; only 8 "
+          "global layers see the 524k cache).",
+))

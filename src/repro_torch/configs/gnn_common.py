@@ -21,9 +21,15 @@ the JAX package's (node and edge rows over every mesh axis, replicated
 weights), ``padded_dims`` pads a shape's node and edge counts to a
 multiple of the mesh's size, and ``gnn_partitioned_step`` is the step of
 the JAX ``gnn_partitioned_bundle`` (DistGNN's cd-0): every rank runs the
-unchanged model loss on its own block of rows. The JAX bundles' all-axes
-row sharding of one graph (``gnn_train_bundle``) waits for the dry-run
-slice.
+unchanged model loss on its own block of rows.
+
+The dry-run's bundles: ``node_batch_sds`` is a batch's meta tensors,
+``gnn_train_bundle`` the JAX bundle of a train step over one graph (node
+and edge rows over every mesh axis, replicated weights and AdamW state;
+its ``fn`` is ``gnn_train_step``, which runs the whole graph on one
+device: the port has no compiler to partition it) and
+``gnn_partitioned_bundle`` that of the partition-parallel step (its
+``fn`` ``gnn_partitioned_step``).
 """
 from __future__ import annotations
 
@@ -31,8 +37,10 @@ import torch
 
 from ..data.sampler import subgraph_shape
 from ..dist.collectives import all_reduce
-from ..dist.sharding import ShardingPolicy
+from ..dist.sharding import ShardingPolicy, named_sharding
 from ..optim import AdamW
+from ..tree import tree_map
+from .base import Bundle, pad_to
 
 MB_NODES, MB_EDGES = subgraph_shape(1024, (15, 10))
 
@@ -77,11 +85,6 @@ def gnn_train_step(loss_closure):
                 {"loss": loss.detach()})
 
     return train_step
-
-
-def pad_to(n: int, m: int) -> int:
-    """``n`` rounded up to a multiple of ``m``."""
-    return ((n + m - 1) // m) * m
 
 
 def gnn_policy(mesh) -> ShardingPolicy:
@@ -173,3 +176,82 @@ def gnn_flops_info(shape_name: str, per_node_flops: float,
     return {"n_params": n_params, "n_active": n_params,
             "tokens": info["n_nodes"], "model_flops": model_flops,
             "kind": "train", "scan_factor": scan_factor}
+
+
+def train_state_abstract(params_abs) -> dict:
+    """A train state of meta tensors for ``params_abs`` (a ``ParamTree``
+    on the meta device): the JAX layout, ``OPTIMIZER``'s moments."""
+    return {"params": params_abs,
+            "opt": OPTIMIZER.init_abstract(params_abs.tree()),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def replicated_state_shardings(mesh, params_abs) -> dict:
+    """Shardings of ``train_state_abstract(params_abs)``: everything
+    replicated on ``mesh``."""
+    repl = named_sharding(mesh)
+    pshard = tree_map(lambda _: repl, params_abs.tree())
+    return {"params": pshard,
+            "opt": {"m": pshard, "v": pshard, "count": repl},
+            "step": repl}
+
+
+def gnn_train_bundle(mesh, shape_info, *, params_abs, loss_closure,
+                     batch_sds: dict, batch_row_sharded: dict,
+                     description: str) -> Bundle:
+    """Generic GNN train-step bundle: replicated small params + AdamW,
+    node/edge tensors sharded over every mesh axis."""
+    policy = gnn_policy(mesh)
+    repl = named_sharding(mesh)
+    rows = named_sharding(mesh, policy.data_axes)
+    batch_shard = {k: (rows if batch_row_sharded.get(k, True) else repl)
+                   for k in batch_sds}
+    return Bundle(fn=gnn_train_step(loss_closure),
+                  args=(train_state_abstract(params_abs), batch_sds),
+                  in_shardings=(replicated_state_shardings(mesh,
+                                                            params_abs),
+                                batch_shard),
+                  donate=(0,), description=description)
+
+
+def node_batch_sds(n_nodes, n_edges, d_feat, *, with_pos=False,
+                   n_graphs=None, triplet_cap=None) -> dict:
+    """A graph batch's meta tensors: the JAX ``node_batch_sds``'s keys,
+    shapes and dtypes."""
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    f32, i32 = torch.float32, torch.int32
+    rows = (n_graphs,) if n_graphs else (n_nodes,)
+    sds = {
+        "node_feat": meta((n_nodes, d_feat), f32),
+        "src": meta((n_edges,), i32),
+        "dst": meta((n_edges,), i32),
+        "labels": meta(rows, i32),
+        "label_mask": meta(rows, f32),
+    }
+    if with_pos:
+        sds["positions"] = meta((n_nodes, 3), f32)
+    if n_graphs:
+        sds["graph_id"] = meta((n_nodes,), i32)
+    if triplet_cap:
+        t = n_edges * triplet_cap
+        sds["t_kj"] = meta((t,), i32)
+        sds["t_ji"] = meta((t,), i32)
+        sds["t_mask"] = meta((t,), f32)
+    return sds
+
+
+def gnn_partitioned_bundle(mesh, shape_info, *, params_abs, local_loss,
+                           batch_sds: dict, description: str) -> Bundle:
+    """Partition-parallel GNN train step (DistGNN cd-0 style): every rank
+    runs the model on its own partition's block of rows
+    (``gnn_partitioned_step``); every batch array's rows sharded over all
+    mesh axes, the weights and AdamW state replicated."""
+    rows = named_sharding(mesh, gnn_policy(mesh).data_axes)
+    return Bundle(fn=gnn_partitioned_step(local_loss, mesh),
+                  args=(train_state_abstract(params_abs), batch_sds),
+                  in_shardings=(replicated_state_shardings(mesh,
+                                                            params_abs),
+                                {k: rows for k in batch_sds}),
+                  donate=(0,),
+                  description=description + " [partition-parallel cd-0]")

@@ -7,10 +7,16 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..dist.sharding import named_sharding
 from ..models.common import require_device
+from ..models.convert import gnn_from_numpy
 from ..models.gnn import graphcast as M
 from ..models.gnn.common import to_device
-from .gnn_common import gnn_flops_info, gnn_partitioned_step, gnn_train_step
+from .base import ArchSpec, Bundle, pad_to, register
+from .gnn_common import (GNN_SHAPES, gnn_flops_info,
+                         gnn_partitioned_bundle, gnn_partitioned_step,
+                         gnn_policy, gnn_train_step,
+                         replicated_state_shardings, train_state_abstract)
 
 BASE = M.GraphCastConfig(n_layers=16, d_hidden=512, n_vars=227,
                          remat="full", dtype=torch.bfloat16)
@@ -52,11 +58,55 @@ def partitioned_train_step(cfg: M.GraphCastConfig, mesh):
     return gnn_partitioned_step(local_loss(cfg), mesh)
 
 
-def _smoke(device="cuda"):
+def _bundle(shape_name: str, mesh, multi_pod=False):
+    info = GNN_SHAPES[shape_name]
+    cfg = BASE
+    m = mesh.size()
+    n_grid = pad_to(info["n_nodes"], m)
+    n_mesh = pad_to(cfg.n_mesh(n_grid), m)
+    n_me = pad_to(info["n_edges"], m)      # shape's edges = processor edges
+    f32, i32 = torch.float32, torch.int32
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    sds = {
+        "grid_feat": meta((n_grid, cfg.n_vars), f32),
+        "mesh_pos": meta((n_mesh, 3), f32),
+        "g2m_src": meta((n_grid,), i32),
+        "g2m_dst": meta((n_grid,), i32),
+        "g2m_feat": meta((n_grid, cfg.d_edge), f32),
+        "mesh_src": meta((n_me,), i32),
+        "mesh_dst": meta((n_me,), i32),
+        "m2g_src": meta((n_grid,), i32),
+        "m2g_dst": meta((n_grid,), i32),
+        "m2g_feat": meta((n_grid, cfg.d_edge), f32),
+        "target": meta((n_grid, cfg.n_vars), f32),
+    }
+    params, _ = M.init_graphcast(cfg, None)
+    description = (f"graphcast {shape_name} grid={n_grid} mesh={n_mesh} "
+                   f"mesh_edges={n_me}")
+    if shape_name == "ogb_products":
+        # 61.9M-edge processor state cannot replicate — partition-parallel
+        return gnn_partitioned_bundle(
+            mesh, info, params_abs=params, local_loss=local_loss(cfg),
+            batch_sds=sds, description=description)
+    rows = named_sharding(mesh, gnn_policy(mesh).data_axes)
+    # local_loss over the whole grid and mesh
+    return Bundle(fn=gnn_train_step(local_loss(cfg)),
+                  args=(train_state_abstract(params), sds),
+                  in_shardings=(replicated_state_shardings(mesh, params),
+                                {k: rows for k in sds}),
+                  donate=(0,), description=description)
+
+
+def _smoke(device="cuda", weights=None):
+    """The JAX ``_smoke``; ``weights`` (the JAX parameter tree as numpy
+    arrays) replaces the seeded draw."""
     device = require_device(device)
     rng = np.random.default_rng(2)
-    params, _ = M.init_graphcast(SMOKE,
-                                 torch.Generator(device).manual_seed(0))
+    params = (M.init_graphcast(SMOKE,
+                               torch.Generator(device).manual_seed(0))[0]
+              if weights is None else gnn_from_numpy(SMOKE, weights, device))
     b = to_device(M.synth_batch(SMOKE, n_grid=256, n_mesh_edges=128,
                                 rng=rng), device)
     with torch.no_grad():
@@ -78,3 +128,12 @@ def _flops(shape_name: str) -> dict:
     per_node = 2 * (cfg.n_vars * d + L * (2 * d) * d * 2 + 2 * d * d)
     return gnn_flops_info(shape_name, per_node, per_edge,
                           cfg.num_params(), scan_factor=cfg.n_layers)
+
+
+register(ArchSpec(
+    name="graphcast", family="gnn", shape_names=tuple(GNN_SHAPES),
+    smoke=_smoke, bundle=_bundle, flops_info=_flops,
+    notes="generic graph shapes parameterize the GRID; mesh nodes = "
+          "max(grid//16, 42) (≈40,962 at refinement 6); the shape's edge "
+          "count drives the multi-mesh processor.",
+))

@@ -3,10 +3,13 @@ vocab=92544 — GQA [arXiv:2403.17297]."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from ..models.transformer import TransformerConfig
+from .base import ArchSpec, register
+from .lm_common import LM_SHAPES, lm_bundle, lm_flops_info, lm_smoke
 
 FULL = TransformerConfig(
     name="internlm2-20b", n_layers=48, d_model=6144, n_heads=48,
@@ -22,3 +25,12 @@ SMOKE = dataclasses.replace(
     FULL, n_layers=2, d_model=64, n_heads=8, n_kv_heads=2, head_dim=8,
     d_ff=128, vocab_size=128, dtype=torch.float32, param_dtype=torch.float32,
     remat="none", grad_accum=1)
+
+register(ArchSpec(
+    name="internlm2-20b", family="lm", shape_names=tuple(LM_SHAPES),
+    smoke=functools.partial(lm_smoke, SMOKE),
+    bundle=lambda shape, mesh, multi_pod=False: lm_bundle(FULL, shape, mesh),
+    flops_info=functools.partial(lm_flops_info, FULL),
+    notes="48 q-heads divide the 16-way model axis exactly (3/shard); "
+          "kv=8 falls back to replicated kv projections.",
+))

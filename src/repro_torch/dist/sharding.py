@@ -136,6 +136,30 @@ class NamedSharding:
     placements: tuple
     spec: tuple = ()
 
+    def shard_shape(self, shape) -> tuple:
+        """The shape of one rank's shard of a tensor of ``shape`` (JAX's
+        ``NamedSharding.shard_shape``): each dimension divided by the
+        sizes of the mesh dimensions that shard it. A dimension they do
+        not divide raises ``ValueError``, as in JAX."""
+        out = list(shape)
+        for i, pl in enumerate(self.placements):
+            if pl.is_shard():
+                n = self.mesh.size(i)
+                if out[pl.dim] % n:
+                    raise ValueError(
+                        f"dimension {pl.dim} of {tuple(shape)} does not "
+                        f"split over mesh axis {self.mesh.mesh_dim_names[i]}"
+                        f" ({n})")
+                out[pl.dim] //= n
+        return tuple(out)
+
+
+def named_sharding(mesh, *spec) -> NamedSharding:
+    """``NamedSharding(mesh, P(*spec))``: ``spec`` a mesh-axis name, a
+    tuple of names or ``None`` per tensor dimension."""
+    spec = tuple(spec)
+    return NamedSharding(mesh, placements_for(spec, mesh), spec)
+
 
 def axis_sizes(mesh) -> dict[str, int]:
     """Mesh-axis name → its size."""

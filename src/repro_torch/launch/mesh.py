@@ -18,7 +18,9 @@ Ranks are processes, started by ``launch_ranks`` (the CLI's ``--mesh N``
 and the tests use it): each gets ``RANK``/``WORLD_SIZE`` and a ``file://``
 rendezvous in a temporary directory, so no TCP port is picked and nothing
 touches the network. ``make_host_mesh`` builds the models' 2-D
-``("data", "model")`` mesh over the same ranks. A process that was not started by ``launch_ranks``
+``("data", "model")`` mesh over the same ranks; ``make_production_mesh``
+the dry-run's 256- or 512-rank mesh on torch's ``fake`` group, in one
+process. A process that was not started by ``launch_ranks``
 forms a group of one rank. Every group is created with an explicit
 ``timeout``, and the launcher fails the whole run when any rank exits
 nonzero or outlives its deadline: a rank that dies before a collective
@@ -38,6 +40,7 @@ import tempfile
 import time
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -140,6 +143,33 @@ def make_host_mesh(model: int = 1, *, device="cuda"):
     return DeviceMesh(torch.device(device).type,
                       torch.arange(n).reshape(n // model, model),
                       mesh_dim_names=("data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The JAX package's production mesh for the dry-run: (16, 16) over
+    ``("data", "model")`` (256 ranks), or (2, 16, 16) over ``("pod",
+    "data", "model")`` (512), a ``DeviceMesh`` on torch's ``fake`` process
+    group, in which this process is rank 0 and no collective moves data.
+    It starts the fake group when the process has none, reuses one of the
+    same world size, and raises ``RuntimeError`` when the process is in a
+    real group (or a fake one of another size); ``close_ranks`` destroys
+    it."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    world = int(np.prod(shape))
+    if dist.is_initialized():
+        if dist.get_backend() != "fake" or dist.get_world_size() != world:
+            raise RuntimeError(
+                f"the production mesh needs a fake process group of "
+                f"{world} ranks; this process is in a "
+                f"{dist.get_backend()} group of {dist.get_world_size()}")
+    else:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=world)
+    return init_device_mesh("cpu", shape, mesh_dim_names=axes)
 
 
 def data_axes(mesh) -> tuple[str, ...]:

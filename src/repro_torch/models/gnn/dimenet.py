@@ -14,9 +14,15 @@ Systems notes:
 * triplets are precomputed host-side with a per-edge in-degree cap
   (``max_in_per_edge``) — exact for molecular graphs, capped for web-scale
   power-law graphs;
-* the Bessel basis runs in float32 whatever the model's dtype, with
-  true divisions where the JAX code divides a constant by a tensor
-  (``torch``'s ``c / x`` is ``c * (1 / x)``, one rounding more).
+* the geometry (distances, angles) and the Bessel and Legendre bases run
+  in float64 (``BASIS_DTYPE``) whatever the model's dtype, and are rounded
+  to it once: the JAX code runs them in float32, where the recurrences'
+  roundings and each device's own ``sin``/``cos``/``pow`` move a basis by
+  ulps that the model amplifies (SMOKE's ``out_mlp`` bias gradient, a
+  difference of much larger terms, parts the card from the CPU by more
+  than the train tests' rule with float32 bases); true divisions where
+  the JAX code divides a constant by a tensor (``torch``'s ``c / x`` is
+  ``c * (1 / x)``, one rounding more).
 """
 from __future__ import annotations
 
@@ -107,11 +113,16 @@ def bessel_roots(n_spherical: int, n_radial: int) -> np.ndarray:
     return roots
 
 
+# the dtype of the geometry and its bases (module docstring)
+BASIS_DTYPE = torch.float64
+
+
 @functools.lru_cache(maxsize=16)
-def _roots_on(n_spherical: int, n_radial: int, device: torch.device):
-    """``bessel_roots`` in float32 on ``device``, copied there once."""
+def _roots_on(n_spherical: int, n_radial: int, device: torch.device,
+              dtype=torch.float32):
+    """``bessel_roots`` in ``dtype`` on ``device``, copied there once."""
     return torch.as_tensor(bessel_roots(n_spherical, n_radial),
-                           dtype=torch.float32, device=device)
+                           dtype=dtype, device=device)
 
 
 def _rdiv(c: float, x):
@@ -132,8 +143,7 @@ def envelope(x, p: int):
 def radial_basis(d, cfg: DimeNetConfig):
     """(E,) distances → (E, n_radial) Bessel RBF with envelope."""
     x = d / cfg.cutoff
-    n = torch.arange(1, cfg.n_radial + 1, dtype=torch.float32,
-                     device=d.device)
+    n = torch.arange(1, cfg.n_radial + 1, dtype=d.dtype, device=d.device)
     # the JAX code's float32 square root of a float32 constant
     scale = float(np.sqrt(np.float32(2.0 / cfg.cutoff)))
     return scale * torch.sin(n[None, :] * np.pi * x[:, None]) \
@@ -145,7 +155,7 @@ def _jl_stack(lmax: int, x):
 
     upward recurrence where x > l (its stable regime), Miller downward with
     tracked log-scale where x ≤ l (where upward explodes)."""
-    xs = torch.where(torch.abs(x) < 1e-6, 1e-6, x).float()
+    xs = torch.where(torch.abs(x) < 1e-6, 1e-6, x)
     # --- upward ---
     up = [torch.sin(xs) / xs]
     if lmax > 1:
@@ -189,7 +199,8 @@ def _legendre_stack(lmax: int, c):
 
 def spherical_basis(d_kj, angle_cos, cfg: DimeNetConfig):
     """(T,) dist + (T,) cos(angle) → (T, n_spherical*n_radial) SBF."""
-    roots = _roots_on(cfg.n_spherical, cfg.n_radial, d_kj.device)  # (L, N)
+    roots = _roots_on(cfg.n_spherical, cfg.n_radial, d_kj.device,
+                      d_kj.dtype)                    # (L, N)
     x = d_kj / cfg.cutoff
     arg = x[:, None, None] * roots[None]            # (T, L, N)
     # evaluate j_l at its own l, per-l slices
@@ -277,7 +288,7 @@ def forward(cfg: DimeNetConfig, params, batch: GraphBatch,
             triplets: tuple | None = None):
     """triplets = (t_kj, t_ji, t_mask) tensors from build_triplets."""
     dt = cfg.dtype
-    pos = batch.positions.float()
+    pos = batch.positions.to(BASIS_DTYPE)
     src, dst, n = batch.src, batch.dst, batch.n_nodes
     vec = pos[dst] - pos[src]
     # numeric guard: synthetic graphs can sample near-coincident nodes; real

@@ -190,7 +190,7 @@ class TransformerConfig:
         return self.n_layers
 
     def num_params(self) -> int:
-        model, _ = init_transformer(self, None)
+        model, _ = init_abstract(self)
         return sum(p.numel() for p in model.parameters())
 
     def num_active_params(self) -> int:
@@ -367,6 +367,14 @@ def init_transformer(cfg: TransformerConfig, rng, *, trainable=False):
     if trainable:
         return ParamTree(params, requires_grad=True), logical
     return ParamTree(compute_dtypes(cfg, params)), logical
+
+
+def init_abstract(cfg: TransformerConfig):
+    """Shapes only (meta tensors, nothing allocated): the master weights in
+    the dtypes the JAX init makes (``cfg.param_dtype``, the router
+    float32), as a trainable ``ParamTree``, and their logical axes — the
+    dry-run's weights and ``num_params``."""
+    return init_transformer(cfg, None, trainable=True)
 
 
 # =============================================================================
@@ -949,44 +957,55 @@ def forward(cfg: TransformerConfig, params, tokens, *, mesh=None,
 SEQ_SHARD_MIN = 2048
 
 
-def _cache_entry(cfg: TransformerConfig, lead, B, S, device):
-    """One layer-stack cache (zeros in cfg.dtype) and its logical axes."""
+def _cache_entry(cfg: TransformerConfig, lead, B, S, device,
+                 seq_shard=False, seq_tp=False):
+    """One layer-stack cache (zeros in cfg.dtype) and its logical axes, the
+    JAX package's: batch on B; S named "batch" for single-sequence
+    long-context decode (``seq_shard``), or "kv_seq" (``seq_tp``)."""
+    b_l = None if seq_shard else "batch"
+    s_l = "batch" if seq_shard else ("kv_seq" if seq_tp else None)
     if cfg.attn_type == "mla":
         shapes = {"ckv": lead + (B, S, cfg.kv_lora_rank),
                   "krope": lead + (B, S, cfg.qk_rope_head_dim)}
-        lg = (None,) * len(lead) + ("batch", None, None)
+        lg = (None,) * len(lead) + (b_l, s_l, None)
     else:
         kv = lead + (B, S, cfg.n_kv_heads, cfg.head_dim)  # unpadded
         shapes = {"k": kv, "v": kv}
-        lg = (None,) * len(lead) + ("batch", None, "kv_heads", None)
+        lg = (None,) * len(lead) + (b_l, s_l, "kv_heads", None)
     vals = {k: torch.zeros(sh, dtype=cfg.dtype, device=device)
             for k, sh in shapes.items()}
     return vals, {k: lg for k in shapes}
 
 
 def init_cache(cfg: TransformerConfig, batch: int, s_max: int, *,
-               device="cuda", seq_len: int | None = None):
+               device="cuda", seq_len: int | None = None,
+               seq_shard: bool = False, seq_tp: bool = False):
     """Returns (cache, logical). Layout mirrors the layer stacks;
     ``device="meta"`` gives shapes only. ``seq_len`` (default ``s_max``)
     is the length of the stacks that are not local rings: a rank's shard
-    of a sequence-sharded cache."""
+    of a sequence-sharded cache. ``seq_shard`` and ``seq_tp`` name those
+    stacks' sequence dimension in ``logical`` as the JAX package's
+    ``init_cache`` does (the dry-run's decode layouts); the values do not
+    change."""
     vals: dict = {}
     logical: dict = {}
     seq_len = s_max if seq_len is None else seq_len
+    seq = {"seq_shard": seq_shard, "seq_tp": seq_tp}
     if cfg.local_global_ratio:
         nb, r = cfg.n_blocks, cfg.local_global_ratio
         w = min(cfg.local_window, s_max)
         vals["local"], logical["local"] = _cache_entry(
             cfg, (nb, r), batch, w, device)
         vals["global"], logical["global"] = _cache_entry(
-            cfg, (nb,), batch, seq_len, device)
+            cfg, (nb,), batch, seq_len, device, **seq)
     else:
         if cfg.first_dense_layers:
             vals["dense"], logical["dense"] = _cache_entry(
-                cfg, (cfg.first_dense_layers,), batch, seq_len, device)
+                cfg, (cfg.first_dense_layers,), batch, seq_len, device,
+                **seq)
         n_main = cfg.n_layers - cfg.first_dense_layers
         vals["blocks"], logical["blocks"] = _cache_entry(
-            cfg, (n_main,), batch, seq_len, device)
+            cfg, (n_main,), batch, seq_len, device, **seq)
     return vals, logical
 
 

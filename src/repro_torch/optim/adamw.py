@@ -43,6 +43,19 @@ class AdamW:
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
                 "count": count}
 
+    def init_abstract(self, params) -> dict:
+        """``init``'s shapes and dtypes on the meta device (nothing
+        allocated): the dry-run's optimizer state."""
+        def meta(p):
+            return torch.empty(p.shape, dtype=self.state_dtype,
+                               device="meta")
+        return {"m": tree_map(meta, params), "v": tree_map(meta, params),
+                "count": torch.empty((), dtype=torch.int32, device="meta")}
+
+    def state_logical(self, logical) -> dict:
+        """The moments shard exactly like their weights."""
+        return {"m": logical, "v": logical, "count": ()}
+
     @torch.no_grad()
     def update(self, params, grads, state, *, gnorm=None):
         """One AdamW step: (params, state), both written in place.

@@ -726,6 +726,43 @@ def test_gpu_smoke_configs_match_the_cpu(cuda, name):
     assert_tree_close(got, want, f"{name} card gradient ")
 
 
+DIMENET_REPEATS = 10
+
+
+@pytest.mark.gpu
+def test_gpu_dimenet_gradient_holds_in_repeated_runs(cuda):
+    """DimeNet's case on the card ``DIMENET_REPEATS`` times, each run at
+    the gradient rule against the CPU (``index_add_`` on the card adds
+    with atomics, in an order that changes from run to run; ``out_mlp``'s
+    last bias, a difference of much larger terms, read 1.31e-4 from the
+    CPU with float32 geometry: ``dimenet.BASIS_DTYPE``). Prints that bias
+    from every run beside the CPU's and a float64 run's."""
+    case = CASES["dimenet"]()
+    cfg = port_config(case.jcfg)
+    params = jax_params(case.jcfg)
+    want_loss, want = port_grads(case, cfg, gnn_from_numpy(cfg, params,
+                                                           "cpu"))
+    cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
+    model64 = gnn_from_numpy(cfg64, jax.tree.map(
+        lambda a: np.asarray(a, np.float64), params), "cpu")
+    out = case.port_forward(cfg64, model64)
+    tgt = torch.from_numpy(case.batch.labels).double().reshape(
+        out.shape[0], -1)
+    torch.mean((out - tgt) ** 2).backward()
+    exact = gnn_to_numpy(cfg64, model64.tree(lambda p: p.grad))
+    runs = [port_grads(case, cfg, gnn_from_numpy(cfg, params, cuda), cuda)
+            for _ in range(DIMENET_REPEATS)]
+    bias = [np.asarray(r[1]["blocks"]["out_mlp"][1][1]).ravel().tolist()
+            for r in runs]
+    print(f"dimenet out_mlp last bias: card {bias}, cpu "
+          f"{np.asarray(want['blocks']['out_mlp'][1][1]).ravel().tolist()}"
+          f", float64 "
+          f"{np.asarray(exact['blocks']['out_mlp'][1][1]).ravel().tolist()}")
+    for i, (loss, grads) in enumerate(runs):
+        np.testing.assert_allclose(loss, want_loss, rtol=LOSS_RTOL)
+        assert_tree_close(grads, want, f"dimenet card gradient, run {i} ")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", list(GNN_ARCHS))
 def test_gpu_smoke(cuda, arch):

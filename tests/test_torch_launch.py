@@ -316,11 +316,15 @@ def test_default_device_without_a_card_fails(tmp_path, nt_file):
 
 def test_module_runs_and_imports_no_jax(tmp_path, nt_file):
     """``python -m repro_torch.launch.assess`` in a process of its own:
-    the same values, and neither JAX nor the JAX package is imported."""
+    the same values, and neither JAX nor the JAX package is imported (nor
+    by the registry of every arch, nor by the dry-run's launcher)."""
     code = ("import sys, runpy\n"
             "sys.argv = ['assess'] + sys.argv[1:]\n"
             "runpy.run_module('repro_torch.launch.assess',"
             " run_name='__main__')\n"
+            "import repro_torch.launch.dryrun\n"
+            "from repro_torch.configs import REGISTRY\n"
+            "assert len(REGISTRY) == 11, sorted(REGISTRY)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.'))\n"
@@ -345,3 +349,18 @@ def test_quickstart_example_runs_on_the_cpu():
         env=env, capture_output=True, text=True, check=True)
     assert "16 metrics from 1 data pass" in proc.stdout
     assert "incremental result identical to a cold assessment" in proc.stdout
+
+
+def test_assess_restart_example_runs_on_the_cpu():
+    """``examples/assess_restart_torch.py --device cpu`` (the analog of
+    ``examples/assess_restart.py``): 24 chunks with failed and slow
+    chunks, a coordinator crash after 12 merges, and a resume from the
+    checkpoint equal to the single-pass result, values and registers."""
+    env = {**os.environ, "PYTHONPATH": "src"}
+    proc = subprocess.run(
+        [sys.executable, "examples/assess_restart_torch.py", "--device",
+         "cpu"], env=env, capture_output=True, text=True, check=True)
+    assert "crashed as injected: injected coordinator crash" in proc.stdout
+    assert "resumed from merge 12; attempts after restart: 12/24" in (
+        proc.stdout)
+    assert "identical to the single-pass reference on cpu" in proc.stdout

@@ -474,7 +474,12 @@ def test_import_pulls_in_no_jax():
             "repro_torch.data.sampler, repro_torch.configs.gnn_common, "
             "repro_torch.configs.gatedgcn_cfg, repro_torch.configs.dimenet_cfg, "
             "repro_torch.configs.equiformer_v2_cfg, "
-            "repro_torch.configs.graphcast_cfg\n"
+            "repro_torch.configs.graphcast_cfg, repro_torch.configs.base, "
+            "repro_torch.configs.lm_common, repro_torch.configs.din_cfg, "
+            "repro_torch.configs.paper_qa, repro_torch.launch.dryrun, "
+            "repro_torch.launch.mesh\n"
+            "from repro_torch.configs import ALL_ARCHS\n"
+            "assert len(ALL_ARCHS) == 11, ALL_ARCHS\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.'))\n"
