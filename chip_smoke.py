@@ -199,7 +199,7 @@ Phases (one JSON line each, plus the last lines described below):
    ``F32_TOL``; (d)
    ``train-gnn-<arch>-<shape>``: gatedgcn, dimenet, equiformer-v2 and
    graphcast at BASE width and depth through their configs' train steps
-   (AdamW lr 1e-3, no weight decay) for 3 steps on full_graph_sm,
+   (AdamW lr 1e-3, no weight decay) for 2 steps on full_graph_sm,
    minibatch_lg (the sampler's 1,024 seeds × fanout (15, 10) over a
    232,965-node graph of 114,615,892 uniform edges; ``train-gnn-sampler``
    times the CSR and the sampling) and molecule; ogb_products is cut
@@ -220,10 +220,10 @@ Phases (one JSON line each, plus the last lines described below):
    width and depth (24 layers, d_model 1024, 32 experts top-8, 16 a model
    rank) in float32 at a capacity of E/top_k (no drops): a forward of 2 ×
    4,096 tokens, a prefill of 4,096 positions (the cache's sequence
-   sharded over "model") and 8 decode steps, each held to the same on one
+   sharded over "model") and 4 decode steps, each held to the same on one
    rank with the mesh's MoE routes replayed (``replayed_routes``; a route
    the one rank would pick otherwise must be a near-tie,
-   ``MM_ROUTE_GAP``), relative L2 ``MM_REL_L2``; 3 float32 AdamW steps at
+   ``MM_ROUTE_GAP``), relative L2 ``MM_REL_L2``; 2 float32 AdamW steps at
    batch 4 × 4,096 (train_4k's 256 cut) against one rank's with
    ``grad_accum`` doubled: every step, each with its own routes
    replayed, in loss and aux within ``MM_LOSS_RTOL`` and in the moments
@@ -239,29 +239,44 @@ Phases (one JSON line each, plus the last lines described below):
    partition-parallel (cd-0) step of DimeNet and GraphCast on
    full_graph_sm and EquiformerV2 on minibatch_lg's shape (169,984
    nodes, 168,960 uniform edges), each graph in four contiguous blocks,
-   cut edges dropped: float32 at BASE for DimeNet and GraphCast, 3 AdamW
+   cut edges dropped: float32 at BASE for DimeNet and GraphCast, 2 AdamW
    steps, the first held to each block's loss run on one rank and
    averaged (loss and first moment), the checked steps on both sides
    ``in_fixed_order``; EquiformerV2 in float32 at
-   ``EQ_CHECK_LAYERS`` layers for that check, then 3 steps at BASE (bf16).
+   ``EQ_CHECK_LAYERS`` layers for that check, then 2 steps at BASE (bf16).
    ``ogb_products`` stays cut: one card holds every partition.
 
 13. dryrun — the dry-run registry (``repro_torch.configs``,
-   ``launch/dryrun.py``): (a) ``python -m repro_torch.launch.dryrun
-   --no-subprocess`` in a process of its own (CPU only, torch's fake
-   process group) over all 88 (arch × shape × mesh) cells: 80 ``OK``, 8
-   ``SKIP``, no ``FAIL``; one ``dryrun-cell`` line each with the
-   arguments' bytes a rank, and the largest beside the card's memory. (b)
-   each of the 11 archs' ``smoke(device="cuda")``: finite losses, the
-   paper's 16 metrics in one pass. (c) each ``dist-quality-assessment``
-   shape on both production meshes: one rank's share of its rows
+   ``launch/dryrun.py``, ``launch/trace.py``): (a) ``python -m
+   repro_torch.launch.dryrun --no-subprocess --no-trace`` in a process of
+   its own (CPU only, torch's fake process group) over all 88 (arch ×
+   shape × mesh) cells: 80 ``OK``, 8 ``SKIP``, no ``FAIL``; one
+   ``dryrun-cell`` line each with the arguments' bytes a rank, and the
+   largest beside the card's memory. Beside phases 8-11, from their
+   start, a process at a lower priority with ``TRACE_THREADS`` CPU
+   threads traces ``TRACE_SET`` (18 cells) as rank 0 on fake ``cuda``
+   tensors: one ``dryrun-traced`` line each, every field of XLA's
+   compile filled (total a rank against the card's memory, FLOPs, bytes
+   accessed, collective bytes by op, ``trace_s``). (b) each of the 11
+   archs' ``smoke(device="cuda")``: finite losses, the paper's 16
+   metrics in one pass. (c) each ``dist-quality-assessment`` shape on
+   both production meshes: one rank's share of its rows
    (``synth_encoded(rows, seed=3)``, 16,191 to 5,050,523 rows) through
    the bundle's ``fn`` (``fused_scan`` on the card, then the reduce over
    the fake mesh), counters and registers bit-identical to the plain
    backend on the card; the kernel timed (CUDA events) through its
-   wrapper and launched alone, beside rows × 52 B over 3.35 TB/s. The
-   launch counts are set to 0 before (b) and read after (c): one
-   ``fused_scan`` a scan (the smoke's and 8 cells').
+   wrapper and launched alone, beside rows × 52 B over 3.35 TB/s. (d)
+   ``dryrun-card``: for each of ``CARD_CELLS`` on (16, 16), rank 0's
+   share of the step run for real on the card (a ``cuda`` production
+   mesh on the fake group, arguments drawn on the card) under the
+   trace's meter: ``max_memory_allocated`` over the step, arguments
+   included, no lower than the trace's peak and above it by at most
+   ``ALLOC_ROUND`` a storage live at the peak and ``LARGE_BLOCK`` more a
+   storage over 1 MiB (the caching allocator's rounding and unsplit
+   blocks); the
+   meter's peak, FLOPs and collectives (counts and bytes) equal to the
+   trace's. The launch counts are set to 0 before (b) and read after
+   (d): one ``fused_scan`` a scan (the smoke's, 8 cells' and (d)'s).
 
 Then one ``scan-kernels`` line: per compiled plan, the NVRTC compile
 time, ptxas' report (registers, shared memory, spills), the resident
@@ -283,6 +298,7 @@ a prefill of the served sequence (the measurement behind ``fan_in_qkv``).
 """
 from __future__ import annotations
 
+import atexit
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -337,6 +353,7 @@ from repro_torch.configs import gnn_common, paper_qa  # noqa: E402
 from repro_torch.data import sampler  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
+from repro_torch.launch import trace as trace_mod  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.models import din as din_mod  # noqa: E402
 from repro_torch.models.gnn import (dimenet, equiformer_v2,  # noqa: E402
@@ -345,7 +362,8 @@ from repro_torch.models.gnn.common import (  # noqa: E402
     GraphBatch, block_diagonal_batch, random_graph, to_device)
 from repro_torch.models import transformer as tf_mod  # noqa: E402
 from repro_torch.models.common import (ParamTree, apply_rope,  # noqa: E402
-                                       rmsnorm, rope_freqs)
+                                       clear_device_caches, rmsnorm,
+                                       rope_freqs)
 from repro_torch.optim import AdamW, cosine_schedule  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.rdf import bsbm_ntriples, synth_encoded  # noqa: E402
@@ -412,9 +430,10 @@ DIN_REQUESTS = {"serve_p99": 20, "serve_bulk": 5, "retrieval_cand": 3}
 DIN_RETRIEVAL_CANDS = 250_000
 F32_FLOPS_PER_S = 67e12        # float32 outside the tensor cores (SXM)
 # phase 10, the training path: granite FULL at train_4k's sequence, the
-# batch cut from 256 to 8 to fit one card (LM_SHAPES["train_4k"]); five
-# steps keep the script within its time limit beside phase 12
-TRAIN_STEPS = 5
+# batch cut from 256 to 8 to fit one card (LM_SHAPES["train_4k"]); two
+# steps (the first, and one timed after it) keep the script within its
+# time limit
+TRAIN_STEPS = 2                # cut from 8 for the time limit
 TRAIN_BATCH = 8
 TRAIN_SEQ = 4096
 TRAIN_CHECK_TOKENS = 32        # batch 1: the float32 card-vs-CPU gradients
@@ -2758,7 +2777,7 @@ def phase_train_lm(smi: str, device="cuda") -> None:
 # edge tensors at d 70-512 alone is 17-63 GB: the JAX package trains it
 # only partition-parallel over a mesh)
 GNN_RUN_SHAPES = ("full_graph_sm", "minibatch_lg", "molecule")
-GNN_STEPS = 3                  # the time limit, beside phase 12
+GNN_STEPS = 2                  # cut from 5 for the time limit
 # minibatch_lg: the sampler's seeds and fanout over a reddit-scale graph
 MB_GRAPH_NODES = 232_965
 MB_GRAPH_EDGES = 114_615_892
@@ -3199,8 +3218,8 @@ MM_MODEL = 2                   # the model axis; data = MM_RANKS / MM_MODEL
 MM_SEQ = 4096                  # train_4k's sequence
 MM_FWD_BATCH = 2
 MM_TRAIN_BATCH = 4             # train_4k's batch of 256 cut to 4
-MM_DECODE = 8
-MM_TRAIN_STEPS = 3
+MM_DECODE = 4                  # cut from 8 for the time limit
+MM_TRAIN_STEPS = 2             # cut from 3 for the time limit
 MM_REL_L2 = 1e-5               # float32 logits, mesh against one rank
 # tests/test_torch_train.py's tolerances: rtol, and an atol of 1e-6 plus
 # this share of the leaf's largest magnitude
@@ -3217,10 +3236,10 @@ MM_TIMEOUT = 1200.0
 # float32 check is cut to EQ_CHECK_LAYERS of its 12 layers: at 12, four
 # ranks' float32 state (~20 GB each on minibatch_lg's shape) does not fit
 # the one card they share; its three steps run at BASE
-MM_GNN = (("dimenet", "full_graph_sm", "f32", 3, True),
-          ("graphcast", "full_graph_sm", "f32", 3, True),
+MM_GNN = (("dimenet", "full_graph_sm", "f32", 2, True),
+          ("graphcast", "full_graph_sm", "f32", 2, True),
           ("equiformer-v2", "minibatch_lg", "f32-cut", 1, True),
-          ("equiformer-v2", "minibatch_lg", "base", 3, False))
+          ("equiformer-v2", "minibatch_lg", "base", 2, False))
 EQ_CHECK_LAYERS = 6
 
 
@@ -3437,7 +3456,7 @@ def microbatch_calls(shards: list, k: int) -> list:
 
 def mm_lm_rank() -> dict:
     """One rank of the sharded granite: forward, prefill and decode (the
-    MoE routes recorded), three float32 train steps and one bf16 step,
+    MoE routes recorded), two float32 train steps and one bf16 step,
     ``compressed_psum`` and a checkpoint across meshes; rank 0 keeps the
     outputs, gathered on the host, and then runs the same on one rank
     (``mm_lm_reference``)."""
@@ -3481,7 +3500,7 @@ def mm_lm_rank() -> dict:
     del sp, cache, lg, routes
     _free()
 
-    # training: three float32 steps; AdamW's moments after the first are
+    # training: two float32 steps; AdamW's moments after the first are
     # 0.1 and 0.05 × the clipped gradient (and its square), every leaf
     sm = ParamTree(distribute_tree(lm_weights(cfg, "cuda",
                                               trainable=True),
@@ -3904,9 +3923,41 @@ def phase_mesh_models(smi: str) -> None:
           "seconds": time.perf_counter() - t_phase})
 
 
-DRYRUN_OUT = os.path.join(BUILD, "dryrun_chip", "cells.jsonl")
+DRYRUN_DIR = os.path.join(BUILD, "dryrun_chip")
+DRYRUN_OUT = os.path.join(DRYRUN_DIR, "cells.jsonl")     # (a) every cell
+TRACE_OUT = os.path.join(DRYRUN_DIR, "traced.jsonl")     # (a) traced set
 DRYRUN_CELLS = {"OK": 80, "SKIP": 8, "FAIL": 0}
 DRYRUN_TIMEOUT = 300.0
+# (a)'s traced set, on (16, 16) but for the paper cells (both meshes): an
+# LM train, prefill and decode step, a DIN train and serve step, each GNN
+# architecture's whole-graph step and GraphCast's partition-parallel one,
+# and every paper cell
+TRACE_SET = ("granite-moe-1b-a400m:train_4k:single",
+             "granite-moe-1b-a400m:prefill_32k:single",
+             "granite-moe-1b-a400m:decode_32k:single",
+             "din:train_batch:single", "din:serve_p99:single",
+             "gatedgcn:full_graph_sm:single", "dimenet:molecule:single",
+             "equiformer-v2:molecule:single",
+             "graphcast:full_graph_sm:single",
+             "graphcast:ogb_products:single", "dist-quality-assessment:*")
+TRACE_THREADS = 2              # the traced set's CPU threads, beside the card
+TRACE_TIMEOUT = 900.0
+# (d): rank 0's share of these steps run on the card, against their trace
+CARD_CELLS = (("dist-quality-assessment", "bsbm_2gb"), ("din", "train_batch"),
+              ("gatedgcn", "full_graph_sm"),
+              ("granite-moe-1b-a400m", "decode_32k"),
+              ("granite-moe-1b-a400m", "train_4k"))
+# the card's peak over a step against the trace's, by the CUDA caching
+# allocator's rules: it rounds a request up to 512 B, and hands out a cached
+# block whole when what would remain is too small to split off (under
+# 512 B from its small pool, up to 1 MiB from its large one, which serves
+# requests over 1 MiB); so each storage live at the trace's peak may hold
+# up to ALLOC_ROUND more, and each large one LARGE_BLOCK more besides.
+# cuBLAS's workspace is not counted: (b)'s smokes run matmuls on the same
+# stream first, which allocate it before any count starts. The card's
+# peak may be no lower than the trace's
+ALLOC_ROUND = 1024
+LARGE_BLOCK = 1 << 20
 
 
 def dryrun_paper_cells() -> list:
@@ -3917,22 +3968,155 @@ def dryrun_paper_cells() -> list:
             for mk, world in (("single", 256), ("multi", 512))]
 
 
-def phase_dryrun(smi: str) -> int:
-    """Phase 13 (module docstring): the dry-run registry. Returns the
-    ``fused_scan`` launches of its path ((b) and (c))."""
-    t_phase = time.perf_counter()
-    # (a) every cell on the fake group, in a process of its own, CPU only,
-    # while (b) and (c) run here
-    shutil.rmtree(os.path.dirname(DRYRUN_OUT), ignore_errors=True)
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun",
-         "--no-subprocess", "--out", DRYRUN_OUT],
-        env={**SRC_ENV, "CUDA_VISIBLE_DEVICES": ""},
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+def start_trace_set() -> subprocess.Popen:
+    """Phase 13 (a)'s traced set (``TRACE_SET``), in a process of its own
+    at a lower priority with ``TRACE_THREADS`` CPU threads, started before
+    the card phases 8-11 so that it runs beside them."""
+    os.makedirs(DRYRUN_DIR, exist_ok=True)
+    if os.path.exists(TRACE_OUT):
+        os.remove(TRACE_OUT)
+    threads = str(TRACE_THREADS)
+    with open(TRACE_OUT + ".log", "w") as log:   # read when it has ended
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun",
+             "--no-subprocess", "--device", "cuda", "--out", TRACE_OUT,
+             "--select", *TRACE_SET],
+            env={**SRC_ENV, "OMP_NUM_THREADS": threads,
+                 "MKL_NUM_THREADS": threads},
+            stdout=log, stderr=subprocess.STDOUT,
+            preexec_fn=lambda: os.nice(10))
+    atexit.register(_stop, proc)     # a failed check ends it too
+    return proc
+
+
+def _stop(proc: subprocess.Popen) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def finish(proc: subprocess.Popen, log: str, timeout: float,
+           what: str) -> str:
+    """The output (in file ``log``) of ``proc`` once it has ended (killed
+    past ``timeout``)."""
     try:
+        proc.wait(timeout=timeout)
+    finally:
+        _stop(proc)
+    with open(log) as f:
+        out = f.read()
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}: "
+          f"{out[-2000:]}")
+    return out
+
+
+def traced_cells(proc: subprocess.Popen, smi: str) -> dict:
+    """(a)'s traced set: every cell ``OK`` with the compile half's fields
+    filled; one ``dryrun-traced`` line each."""
+    t = time.perf_counter()
+    finish(proc, TRACE_OUT + ".log", TRACE_TIMEOUT, "the traced dry-run")
+    waited = time.perf_counter() - t
+    with open(TRACE_OUT) as f:
+        recs = {(r["arch"], r["shape"], r["mesh"]): r
+                for r in map(json.loads, f)}
+    check(len(recs) == 18, f"the traced set has {len(recs)} cells")
+    for key, r in recs.items():
+        check(r["status"] == "OK", f"traced {key}: {r.get('error')}")
+        mem = r["memory"]
+        check(None not in (mem["output_bytes"], mem["temp_bytes"],
+                           mem["alias_bytes"], mem["total_per_device"],
+                           r["flops_per_device"],
+                           r["bytes_accessed_per_device"],
+                           r["collectives"]),
+              f"traced {key}: every field filled")
+        emit({"phase": "dryrun-traced", "card": smi, "arch": key[0],
+              "shape": key[1], "mesh": key[2],
+              "total_per_device": mem["total_per_device"],
+              "peak_bytes": r["peak_bytes"],
+              "card_memory": torch.cuda.get_device_properties(0)
+              .total_memory,
+              "flops_per_device": r["flops_per_device"],
+              "bytes_accessed_per_device": r["bytes_accessed_per_device"],
+              "collectives": r["collectives"], "trace_s": r["trace_s"]})
+    emit({"phase": "dryrun-traced-set", "cells": len(recs),
+          "trace_s": sum(r["trace_s"] for r in recs.values()),
+          "waited_s": waited})
+    return recs
+
+
+def card_against_trace(arch: str, shape: str, traced: dict, smi: str):
+    """(d): rank 0's share of one cell's step run for real on the card (the
+    fake group's production mesh on ``cuda``, arguments drawn on the
+    card) under the trace's meter: the card's peak
+    (``max_memory_allocated`` over the step, the arguments included)
+    against the trace's, FLOPs and collectives equal to the trace's."""
+    rec = traced[(arch, shape, "single")]
+    mesh = mesh_mod.make_production_mesh(device="cuda")
+    try:
+        b = configs.REGISTRY[arch].bundle(shape, mesh)
+        # the models' small cached tensors (run_metered clears them) are
+        # freed before the count starts, so that the step cannot free
+        # memory it did not allocate
+        clear_device_caches()
+        _free()
+        base = torch.cuda.memory_allocated()
+        args = trace_mod.real_arguments(b, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out, real = trace_mod.run_metered(b.fn, args, "cuda", b.donate)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t
+        card = torch.cuda.max_memory_allocated() - base
+        del out, args
+    finally:
+        mesh_mod.close_ranks()
+    _free()
+    slack = (ALLOC_ROUND * rec["peak_storages"]
+             + LARGE_BLOCK * rec["peak_large_storages"])
+    line = {"phase": "dryrun-card", "card": smi, "arch": arch,
+            "shape": shape, "mesh": "single",
+            "card_peak_bytes": card, "trace_peak_bytes": rec["peak_bytes"],
+            "trace_total_per_device": rec["memory"]["total_per_device"],
+            "meter_peak_bytes": real["peak_bytes"],
+            "excess_bytes": card - rec["peak_bytes"], "slack_bytes": slack,
+            "storages": [rec["peak_storages"], rec["peak_large_storages"]],
+            "flops": [real["flops_per_device"], rec["flops_per_device"]],
+            "collectives_equal": real["collectives"] == rec["collectives"],
+            "collectives": rec["collectives"], "step_s": step_s}
+    emit(line)
+    check(rec["peak_bytes"] <= card <= rec["peak_bytes"] + slack,
+          f"{arch} {shape}: the card's peak {card} against the trace's "
+          f"{rec['peak_bytes']} (+ {slack})")
+    check(real["peak_bytes"] == rec["peak_bytes"],
+          f"{arch} {shape}: the meter's peak on the card "
+          f"{real['peak_bytes']} against the trace's {rec['peak_bytes']}")
+    check(real["flops_per_device"] == rec["flops_per_device"],
+          f"{arch} {shape}: FLOPs {line['flops']}")
+    check(line["collectives_equal"], f"{arch} {shape}: collectives "
+          f"{real['collectives']} against {rec['collectives']}")
+
+
+def phase_dryrun(smi: str, trace_proc: subprocess.Popen) -> int:
+    """Phase 13 (module docstring): the dry-run registry. Returns the
+    ``fused_scan`` launches of its path ((b), (c) and (d))."""
+    t_phase = time.perf_counter()
+    # (a) every cell built on the fake group, in a process of its own, CPU
+    # only, while (b)-(d) run here; the traced set has run since phase 8
+    if os.path.exists(DRYRUN_OUT):
+        os.remove(DRYRUN_OUT)
+    with open(DRYRUN_OUT + ".log", "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun",
+             "--no-subprocess", "--no-trace", "--out", DRYRUN_OUT],
+            env={**SRC_ENV, "CUDA_VISIBLE_DEVICES": ""},
+            stdout=log, stderr=subprocess.STDOUT)
+    try:
+        traced = traced_cells(trace_proc, smi)
         # (b) each arch's smoke on the card, then (c) one rank's share of
-        # each paper cell through the bundle's fn; the launch counts of
-        # both set to 0 just before and read just after
+        # each paper cell through the bundle's fn, then (d) the card
+        # against the trace; the launch counts of all three set to 0 just
+        # before and read just after
         planes = {}
         for shape, mk, rows in dryrun_paper_cells():
             planes[shape, mk] = torch.from_numpy(
@@ -3952,11 +4136,15 @@ def phase_dryrun(smi: str) -> int:
             finally:
                 mesh_mod.close_ranks()
         torch.cuda.synchronize()
+        t = time.perf_counter()
+        for arch, shape in CARD_CELLS:
+            card_against_trace(arch, shape, traced, smi)
+        card_s = time.perf_counter() - t
         launched = dict(K.LAUNCHES)
         check(launched == {"qap_count": 0, "hll_fold": 0,
-                           "fused_scan": 1 + len(outs)},
-              f"dry-run phase: one fused_scan a paper scan and the paper "
-              f"smoke, nothing else: {launched}")
+                           "fused_scan": 2 + len(outs)},
+              f"dry-run phase: one fused_scan a paper scan, the paper "
+              f"smoke and the card's paper step, nothing else: {launched}")
         for name, r in smokes.items():
             vals = [v for k, v in r.items() if k not in ("values", "seconds")]
             check(all(np.isfinite(v) for v in vals),
@@ -3998,13 +4186,10 @@ def phase_dryrun(smi: str) -> int:
         emit({"phase": "dryrun-paper-cells", "card": smi, "cells": cells})
         del planes, outs
         torch.cuda.empty_cache()
-        out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+        out = finish(proc, DRYRUN_OUT + ".log", DRYRUN_TIMEOUT, "the dry-run")
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    check(proc.returncode == 0, f"the dry-run exited {proc.returncode}: "
-          f"{out[-2000:]}")
+        _stop(proc)
+        _stop(trace_proc)
     with open(DRYRUN_OUT) as f:
         recs = [json.loads(line) for line in f]
     status = {k: sum(r["status"] == k for r in recs) for k in DRYRUN_CELLS}
@@ -4014,7 +4199,7 @@ def phase_dryrun(smi: str) -> int:
               "argument_bytes": r.get("memory", {}).get("argument_bytes"),
               **({"error": r["error"]} if r["status"] == "FAIL" else {})})
     check(status == DRYRUN_CELLS and len(recs) == sum(DRYRUN_CELLS.values()),
-          f"dry-run cells: {status}")
+          f"dry-run cells: {status} {out[-1000:]}")
     big = max((r for r in recs if r["status"] == "OK"),
               key=lambda r: r["memory"]["argument_bytes"])
     emit({"phase": "dryrun", "card": smi, "cells": status,
@@ -4023,6 +4208,7 @@ def phase_dryrun(smi: str) -> int:
           "card_total_memory": torch.cuda.get_device_properties(0)
           .total_memory,
           "fused_scan_launches": launched["fused_scan"],
+          "card_against_trace_s": card_s,
           "seconds": time.perf_counter() - t_phase})
     return launched["fused_scan"]
 
@@ -4033,7 +4219,7 @@ def dryrun_only() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     smi = train_mod.card_line()
-    phase_dryrun(smi)
+    phase_dryrun(smi, start_trace_set())
     print(smi, flush=True)
     return 0
 
@@ -4192,6 +4378,8 @@ def main() -> int:
     phase_catalog(launches)
 
     # -- 8. the LM configs at full width; 9. DIN at its full table ---------
+    # (13 (a)'s traced set runs beside the card phases 8-11)
+    trace_proc = start_trace_set()
     before = dict(K.LAUNCHES)
     phase_models_lm(smi)
     phase_models_din(smi)
@@ -4199,7 +4387,7 @@ def main() -> int:
     phase_train_gnn(smi)
     check(K.LAUNCHES == before, "the model phases launch no scan kernel")
     # -- 13. the dry-run registry: every cell, every smoke, the paper cells
-    launches["fused_scan"] += phase_dryrun(smi)
+    launches["fused_scan"] += phase_dryrun(smi, trace_proc)
 
     phase_scan_kernels(scan_kernel_labels(all_plan, paper_plan, cover_plan,
                                           limits))

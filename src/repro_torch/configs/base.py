@@ -7,14 +7,17 @@ the step the JAX bundle would ``jit`` (the port's step, on real tensors),
 ``args`` a tree of meta tensors with the global shapes and dtypes of its
 arguments, and ``in_shardings``/``out_shardings`` trees of
 ``dist.sharding.NamedSharding`` of the same structure: the JAX bundle's
-layout, from which the dry-run computes each rank's shard. The port has
-no compiler, so the dry-run builds every cell, calls no ``fn`` and reads
-neither ``out_shardings`` nor ``donate`` (kept as the JAX bundle states
-them; ``configs/lm_common.py`` says where the port lays its LM cache out
-otherwise). The paper cells' ``fn`` runs on one rank's rows in
-``chip_smoke.py``; the LM, DIN, GatedGCN, DimeNet and EquiformerV2
-bundles' at small sizes in tests/test_torch_dryrun_bundles.py; the steps
-of GraphCast's and the partition-parallel bundles in
+layout, from which the dry-run computes each rank's shard. The dry-run
+traces ``fn`` as rank 0 (``launch/trace.py``) on ``DTensor``s placed as
+``run_shardings`` say where the port's step takes an argument in another
+layout (the LM cache's sequence over "model"; rows over the mesh's axes
+merged into one), else as ``in_shardings`` do, with ``trace_values`` in
+place of the arguments a step reads as Python numbers. It reads
+``donate`` only to count an output that shares a donated argument's
+storage as an alias, and ``out_shardings`` not at all. The paper cells' ``fn`` also runs on one
+rank's rows in ``chip_smoke.py``; the LM, DIN, GNN and GraphCast
+bundles' at small sizes on a (2, 2) mesh in
+tests/test_torch_dryrun_bundles.py; the partition-parallel steps in
 tests/test_torch_mesh_gnn.py.
 """
 from __future__ import annotations
@@ -34,6 +37,12 @@ class Bundle:
     out_shardings: Any = None       # optional output shardings
     donate: tuple = ()              # arguments the step updates in place
     description: str = ""
+    # the layout the port's step takes its arguments in, where it differs
+    # from in_shardings (the JAX layout, which the record's arguments keep)
+    run_shardings: Any = None
+    # argument index -> the Python value a trace passes in its place (a
+    # position the step reads as an int)
+    trace_values: dict | None = None
 
 
 @dataclasses.dataclass

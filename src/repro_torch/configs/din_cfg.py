@@ -12,7 +12,9 @@ from ..models import din as M
 from ..models.common import ParamTree, require_device
 from ..models.convert import din_from_numpy
 from .base import ArchSpec, Bundle, register
-from .gnn_common import gnn_train_step, train_state_abstract
+from ..tree import tree_map
+from .gnn_common import (dtensor_step, gnn_train_step, merge_axes,
+                         on_merged, train_state_abstract)
 
 FULL = M.DINConfig()
 SMOKE = dataclasses.replace(FULL, n_items=1000, n_cats=50)
@@ -69,6 +71,12 @@ def _bundle(shape_name: str, mesh, multi_pod=False):
     sds = _batch_sds(cfg, B, C)
     bshard = {k: (rows if k.startswith(("cand", "labels")) else row0)
               for k in sds}
+    # the port runs the step with the data axes merged into one ("rows")
+    n = len(policy.data_axes)
+    merged = merge_axes(mesh, n)
+
+    def run(shardings):
+        return tree_map(lambda s: on_merged(s, merged, n), shardings)
 
     if info["kind"] == "train":
         params = ParamTree(params.tree(), requires_grad=True)
@@ -76,15 +84,17 @@ def _bundle(shape_name: str, mesh, multi_pod=False):
         state_shard = {"params": pshard,
                        "opt": {"m": pshard, "v": pshard, "count": repl},
                        "step": repl}
-        return Bundle(fn=train_step(cfg), args=(state, sds),
+        return Bundle(fn=dtensor_step(train_step(cfg)), args=(state, sds),
                       in_shardings=(state_shard, bshard), donate=(0,),
-                      description=f"din train B={B}")
+                      description=f"din train B={B}",
+                      run_shardings=run((state_shard, bshard)))
 
     def serve_step(p, b):
         return M.forward(cfg, p, b)
-    return Bundle(fn=serve_step, args=(params, sds),
+    return Bundle(fn=dtensor_step(serve_step), args=(params, sds),
                   in_shardings=(pshard, bshard),
-                  description=f"din serve B={B} C={C}")
+                  description=f"din serve B={B} C={C}",
+                  run_shardings=run((pshard, bshard)))
 
 
 def _smoke(device="cuda", weights=None):

@@ -25,11 +25,15 @@ unchanged model loss on its own block of rows.
 
 The dry-run's bundles: ``node_batch_sds`` is a batch's meta tensors,
 ``gnn_train_bundle`` the JAX bundle of a train step over one graph (node
-and edge rows over every mesh axis, replicated weights and AdamW state;
-its ``fn`` is ``gnn_train_step``, which runs the whole graph on one
-device: the port has no compiler to partition it) and
-``gnn_partitioned_bundle`` that of the partition-parallel step (its
-``fn`` ``gnn_partitioned_step``).
+and edge rows over every mesh axis, replicated weights and AdamW state)
+and ``gnn_partitioned_bundle`` that of the partition-parallel step (its
+``fn`` ``gnn_partitioned_step``). A whole-graph bundle's ``fn`` is
+``gnn_train_step`` as a ``dtensor_step``: given ``DTensor``s placed as
+the bundle's ``run_shardings`` say (the JAX layout on the mesh with every
+axis merged into one, ``merge_axes``), DTensor's sharding propagation
+partitions it, as XLA partitions the JAX step, and every rank holds its
+own rows; the models' scatters are partitioned explicitly
+(``models/gnn/common.py``). On plain tensors it is the one-device step.
 """
 from __future__ import annotations
 
@@ -87,6 +91,101 @@ def gnn_train_step(loss_closure):
     return train_step
 
 
+def dtensor_step(step):
+    """``step`` as a program over ``DTensor`` inputs, which DTensor's
+    sharding propagation partitions: a plain tensor the step makes (an
+    ``arange``, a constant) counts as replicated beside them. Three ops
+    are placed by hand (``_Placed``): a ``stack`` or ``cat`` gets its
+    dimension counted from the front (torch 2.11 places ``stack(...,
+    dim=-1)`` of row-sharded tensors as sharded along the new dimension);
+    rows gathered by a ``DTensor`` of indices (``x[idx]``) are gathered
+    from ``x`` whole, as XLA partitions a gather whose indices are
+    sharded (torch 2.11's backward of it scatters a rank's rows as if
+    they were all), and so are a table's rows looked up by ``DTensor``
+    indices (``F.embedding``: torch 2.11 places its backward's
+    ``index_put`` wrongly). On plain tensors it is ``step`` itself."""
+    def run(*args):
+        from torch.distributed.tensor.experimental import (
+            implicit_replication)
+        with implicit_replication(), _Placed():
+            return step(*args)
+    return run
+
+
+def _gather_rows(x, idx):
+    """``x[idx]`` for a ``DTensor`` ``x`` and a ``DTensor`` of row indices
+    of any shape: ``x`` gathered whole on every rank, each rank's indices
+    taken from it; the result placed as ``idx`` is, and the gradient of
+    ``x`` a partial sum over the ranks that split ``idx``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = x.device_mesh
+    whole = x.redistribute(mesh, [Replicate()] * mesh.ndim)
+    grad = [Partial() if p.is_shard() else Replicate()
+            for p in idx.placements]
+    local = whole.to_local(grad_placements=grad)[idx.to_local()]
+    shape = torch.Size(tuple(idx.shape) + tuple(x.shape[1:]))
+    return DTensor.from_local(local, mesh, idx.placements, run_check=False,
+                              shape=shape, stride=torch.empty(
+                                  shape, device="meta").stride())
+
+
+class _Placed(torch.overrides.TorchFunctionMode):
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        kwargs = dict(kwargs or {})
+        if func in (torch.stack, torch.cat, torch.concat):
+            dim = kwargs.pop("dim", args[1] if len(args) > 1 else 0)
+            first = args[0][0]
+            if dim < 0:
+                dim += first.ndim + (func is torch.stack)
+            return func(args[0], dim=dim, **kwargs)
+        if (func is torch.Tensor.__getitem__ and len(args) == 2
+                and isinstance(args[0], DTensor)
+                and isinstance(args[1], DTensor) and args[1].ndim == 1
+                and not args[1].dtype.is_floating_point
+                and args[1].dtype != torch.bool):
+            return _gather_rows(*args)
+        if (func is torch.nn.functional.embedding and len(args) == 2
+                and isinstance(args[0], DTensor)
+                and isinstance(args[1], DTensor)
+                and not any(v for k, v in kwargs.items()
+                            if k != "norm_type")):   # a plain lookup
+            return _gather_rows(args[1], args[0])
+        return func(*args, **kwargs)
+
+
+def merge_axes(mesh, n: int):
+    """``mesh`` with its ``n`` leading dimensions merged into one, named
+    "rows", the ranks in the same order: a tensor dimension split over
+    those axes (JAX's ``P(("data", "model"))``) is one ``Shard`` on it.
+    DTensor splits such a dimension one mesh axis at a time (a gather one
+    collective an axis) and has no rule for some ops on it (torch 2.11:
+    an index into rows sharded twice); XLA gathers once over them all."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    shape = tuple(mesh.mesh.shape)
+    rest = shape[n:]
+    return DeviceMesh(mesh.device_type,
+                      mesh.mesh.reshape((-1,) + rest),
+                      mesh_dim_names=("rows",) + tuple(
+                          mesh.mesh_dim_names[n:]))
+
+
+def on_merged(sharding, merged, n: int):
+    """``sharding`` (on a mesh whose ``n`` leading dimensions ``merged``
+    merges) placed on ``merged``: the same shard on every rank."""
+    from ..dist.sharding import NamedSharding
+
+    lead = set(sharding.placements[:n])
+    if len(lead) != 1:
+        raise ValueError(f"axes merged into rows place a tensor "
+                         f"differently: {sharding.placements[:n]}")
+    return NamedSharding(merged, (lead.pop(),) + tuple(
+        sharding.placements[n:]), sharding.spec)
+
+
 def gnn_policy(mesh) -> ShardingPolicy:
     """Node and edge rows over every mesh axis (a GNN has no tensor-parallel
     dimension, so "model" joins the data axes); weights replicated."""
@@ -119,6 +218,8 @@ def gnn_partitioned_step(local_loss, mesh):
     gradients of the replicated weights are the mean over the ranks (one
     SUM all-reduce of them flattened, divided by the number of ranks), and
     every rank applies the same ``OPTIMIZER`` update."""
+    from torch.distributed.tensor import Shard
+
     names = mesh.mesh_dim_names
     coord = mesh.get_coordinate()
     n = mesh.size()
@@ -129,12 +230,18 @@ def gnn_partitioned_step(local_loss, mesh):
     groups = [mesh.get_group(i) for i in range(mesh.ndim)
               if mesh.size(i) > 1]
 
+    def local(t):
+        return t.to_local() if hasattr(t, "to_local") else t
+
     def mean(t):
         for g in groups:
             t = all_reduce(t, g)
         return t / n
 
     def block(t, device):
+        if hasattr(t, "to_local"):   # a DTensor placed by rows: its block
+            m = t.device_mesh
+            return t.redistribute(m, [Shard(0)] * m.ndim).to_local()
         if t.shape[0] % n:
             raise ValueError(f"{t.shape[0]} rows do not split into {n} "
                              f"partitions")
@@ -151,14 +258,15 @@ def gnn_partitioned_step(local_loss, mesh):
         with torch.no_grad():
             grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                      for p in params]
-            flat = mean(torch.cat([g.reshape(-1).float() for g in grads]))
+            flat = mean(torch.cat([local(g).reshape(-1).float()
+                                   for g in grads]))
             for g, part in zip(grads, flat.split([g.numel() for g in grads])):
                 g.copy_(part.view_as(g))
             for p, g in zip(params, grads):
                 p.grad = g
             grads = model.tree(lambda p: p.grad)
             opt = OPTIMIZER.update(model.tree(), grads, state["opt"])[1]
-            loss = mean(loss.detach().float().clone())
+            loss = mean(local(loss).detach().float().clone())
         model.zero_grad(set_to_none=True)
         return ({"params": model, "opt": opt, "step": state["step"] + 1},
                 {"loss": loss})
@@ -206,12 +314,20 @@ def gnn_train_bundle(mesh, shape_info, *, params_abs, loss_closure,
     rows = named_sharding(mesh, policy.data_axes)
     batch_shard = {k: (rows if batch_row_sharded.get(k, True) else repl)
                    for k in batch_sds}
-    return Bundle(fn=gnn_train_step(loss_closure),
+    shardings = (replicated_state_shardings(mesh, params_abs), batch_shard)
+    return Bundle(fn=dtensor_step(gnn_train_step(loss_closure)),
                   args=(train_state_abstract(params_abs), batch_sds),
-                  in_shardings=(replicated_state_shardings(mesh,
-                                                            params_abs),
-                                batch_shard),
-                  donate=(0,), description=description)
+                  in_shardings=shardings, donate=(0,),
+                  description=description,
+                  run_shardings=rows_merged(shardings, mesh))
+
+
+def rows_merged(shardings, mesh):
+    """A bundle's shardings on ``mesh`` with every axis merged into one
+    (``merge_axes``): the layout in which the port runs a step whose rows
+    are split over every axis."""
+    merged = merge_axes(mesh, mesh.ndim)
+    return tree_map(lambda s: on_merged(s, merged, mesh.ndim), shardings)
 
 
 def node_batch_sds(n_nodes, n_edges, d_feat, *, with_pos=False,
@@ -248,10 +364,10 @@ def gnn_partitioned_bundle(mesh, shape_info, *, params_abs, local_loss,
     (``gnn_partitioned_step``); every batch array's rows sharded over all
     mesh axes, the weights and AdamW state replicated."""
     rows = named_sharding(mesh, gnn_policy(mesh).data_axes)
-    return Bundle(fn=gnn_partitioned_step(local_loss, mesh),
+    shardings = (replicated_state_shardings(mesh, params_abs),
+                 {k: rows for k in batch_sds})
+    return Bundle(fn=dtensor_step(gnn_partitioned_step(local_loss, mesh)),
                   args=(train_state_abstract(params_abs), batch_sds),
-                  in_shardings=(replicated_state_shardings(mesh,
-                                                            params_abs),
-                                {k: rows for k in batch_sds}),
-                  donate=(0,),
-                  description=description + " [partition-parallel cd-0]")
+                  in_shardings=shardings, donate=(0,),
+                  description=description + " [partition-parallel cd-0]",
+                  run_shardings=rows_merged(shardings, mesh))

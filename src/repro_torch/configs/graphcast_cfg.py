@@ -13,9 +13,9 @@ from ..models.convert import gnn_from_numpy
 from ..models.gnn import graphcast as M
 from ..models.gnn.common import to_device
 from .base import ArchSpec, Bundle, pad_to, register
-from .gnn_common import (GNN_SHAPES, gnn_flops_info,
+from .gnn_common import (GNN_SHAPES, dtensor_step, gnn_flops_info,
                          gnn_partitioned_bundle, gnn_partitioned_step,
-                         gnn_policy, gnn_train_step,
+                         gnn_policy, gnn_train_step, rows_merged,
                          replicated_state_shardings, train_state_abstract)
 
 BASE = M.GraphCastConfig(n_layers=16, d_hidden=512, n_vars=227,
@@ -91,12 +91,14 @@ def _bundle(shape_name: str, mesh, multi_pod=False):
             mesh, info, params_abs=params, local_loss=local_loss(cfg),
             batch_sds=sds, description=description)
     rows = named_sharding(mesh, gnn_policy(mesh).data_axes)
+    shardings = (replicated_state_shardings(mesh, params),
+                 {k: rows for k in sds})
     # local_loss over the whole grid and mesh
-    return Bundle(fn=gnn_train_step(local_loss(cfg)),
+    return Bundle(fn=dtensor_step(gnn_train_step(local_loss(cfg))),
                   args=(train_state_abstract(params), sds),
-                  in_shardings=(replicated_state_shardings(mesh, params),
-                                {k: rows for k in sds}),
-                  donate=(0,), description=description)
+                  in_shardings=shardings, donate=(0,),
+                  description=description,
+                  run_shardings=rows_merged(shardings, mesh))
 
 
 def _smoke(device="cuda", weights=None):

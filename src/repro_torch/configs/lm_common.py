@@ -11,12 +11,16 @@ the master weights in the JAX init's dtypes) and its shardings the JAX
 bundle's, placed by the port's ``ShardingPolicy``; its ``fn`` is the
 port's ``make_train_step`` / ``prefill`` / ``decode_step`` under
 ``mesh=``/``policy=``: the weights and the optimizer state ``DTensor``s
-placed as ``in_shardings`` say, the tokens whole on every rank (each rank
-takes its data shard's rows). The cache is the exception: the bundles
-(and so the dry-run's bytes) give it the JAX layout, the batch over the
-data axes and the kv heads over "model" where they divide, while the
-port's sharded ``prefill`` and ``decode_step`` keep the batch there and
-put the sequence over "model" past 2,048 positions (split-KV decode).
+placed as ``in_shardings`` say, the tokens whole on every rank or placed
+by rows (each rank takes its data shard's rows). The cache is the
+exception: the bundles' ``in_shardings`` (and so the dry-run's argument
+bytes) give it the JAX layout, the batch over the data axes and the kv
+heads over "model" where they divide, while the port's sharded
+``prefill`` and ``decode_step`` keep the batch there and put the
+sequence over "model" past 2,048 positions (split-KV decode): the decode
+bundle's ``run_shardings`` (``port_cache_shardings``), which the
+dry-run's trace runs. A trace decodes at the cache's last slot
+(``trace_values``).
 """
 from __future__ import annotations
 
@@ -127,11 +131,38 @@ def lm_bundle(cfg: tf.TransformerConfig, shape_name: str, mesh,
     def decode(p, c, t, cp):
         return tf.decode_step(cfg, _served(cfg, p), c, t, int(cp),
                               mesh=mesh, policy=policy)
+    port_cshard = port_cache_shardings(mesh, policy, cache, B, S)
     return Bundle(fn=decode, args=(params, cache, tokens, pos),
                   in_shardings=(pshard, cshard, tok_shard, repl),
                   out_shardings=(logits_shard, cshard),
                   donate=(1,),  # in-place KV-cache update
-                  description=f"serve_step B={B} cache={S}")
+                  description=f"serve_step B={B} cache={S}",
+                  run_shardings=(pshard, port_cshard, tok_shard, repl),
+                  # the cache's last slot: the longest attention span
+                  trace_values={3: S - 1})
+
+
+def port_cache_shardings(mesh, policy, cache, batch: int, s_max: int):
+    """The layout the port's sharded ``prefill`` and ``decode_step`` keep a
+    cache of ``s_max`` positions in (``tf.prefill``): the batch over the
+    data axes (replicated where it does not divide them: every data rank
+    decodes the whole batch), the sequence of every stack but gemma's
+    local rings over "model" where ``tf._seq_sharded`` says so."""
+    from ..dist.mesh_view import MeshView
+    from ..dist.sharding import NamedSharding
+
+    mv = MeshView(mesh, policy)
+    seq = tf._seq_sharded(mv, s_max)
+    out = {}
+    for stack, entry in cache.items():
+        lead = tf._cache_lead(stack)
+        pl = mv.placements(lead, lead + 1 if seq and stack != "local"
+                           else None)
+        if batch % mv.n_data:
+            pl = [mv._rep() if i in mv.data else p
+                  for i, p in enumerate(pl)]
+        out[stack] = {n: NamedSharding(mesh, tuple(pl)) for n in entry}
+    return out
 
 
 def lm_smoke(cfg_small: tf.TransformerConfig, vocab: int = 128, *,

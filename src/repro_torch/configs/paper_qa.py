@@ -56,6 +56,8 @@ def _bundle(shape_name: str, mesh, multi_pod=False):
     local_pass = ev._local_pass_fn(pln)
 
     def scan(planes):
+        if hasattr(planes, "to_local"):     # a DTensor: this rank's rows
+            planes = planes.to_local()
         counts, regs = local_pass(planes)
         return reduce_over_mesh(mesh, counts, regs)
     planes = torch.empty((n, N_PLANES), dtype=torch.int32, device="meta")

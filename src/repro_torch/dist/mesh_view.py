@@ -84,7 +84,14 @@ class MeshView:
     # -- the batch -----------------------------------------------------------
     def rows(self, t):
         """This rank's rows of a global batch ``t`` (the same on every
-        rank)."""
+        rank), or of a ``DTensor`` whose rows are placed over the data
+        axes (its local tensor)."""
+        if hasattr(t, "placements"):
+            # a batch the data shards do not divide: every one takes it all
+            split = t.shape[0] % self.n_data == 0
+            want = [self._shard(0) if split and i in self.data
+                    else self._rep() for i in range(self.mesh.ndim)]
+            return t.redistribute(self.mesh, want).to_local()
         b = t.shape[0]
         if b % self.n_data:
             raise ValueError(f"batch {b} does not split over "

@@ -25,6 +25,12 @@ any device — the hook behind ``QualityEvaluator.passes_per_chunk``.
 
 Launch accounting
 -----------------
+A fake or meta tensor on the card (``shape_only``: a traced step's) takes
+a third route: the arguments are checked, the outputs made empty of the
+right shape, dtype and device, and nothing is launched or counted in
+``LAUNCHES``. Either way the call is told to ``KERNEL_OBSERVERS`` as one
+op reading the planes and writing the outputs.
+
 ``LAUNCHES`` holds one count per kernel. A wrapper adds one, through
 ``record_launch``, where it launches its kernel on the card, and nowhere
 else, so a run can show that it went through the kernels:
@@ -34,6 +40,7 @@ the scheduler launches kernels from worker threads too.
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 
 LAUNCHES: dict[str, int] = {"qap_count": 0, "fused_scan": 0, "hll_fold": 0}
@@ -50,6 +57,29 @@ def record_launch(name: str) -> None:
     """Count one launch of kernel ``name`` (safe from any thread)."""
     with _launch_lock:
         LAUNCHES[name] += 1
+
+
+def shape_only(t) -> bool:
+    """Whether ``t`` holds no data: a meta tensor, or a fake one (under
+    ``FakeTensorMode``, a traced step's). A wrapper given one on the card
+    checks its arguments and returns outputs of the right shape, dtype and
+    device, launching nothing; a real tensor never takes that route."""
+    if t.device.type == "meta":
+        return True
+    # a fake tensor exists only once its module is loaded: nothing imported
+    fake = sys.modules.get("torch._subclasses.fake_tensor")
+    return fake is not None and isinstance(t, fake.FakeTensor)
+
+
+# told of every kernel call, launched or shape-only, as
+# ``f(bytes read, tensors written)``: a traced step's meter counts the
+# kernel as one op (``launch/trace.py``)
+KERNEL_OBSERVERS: list = []
+
+
+def note_kernel(read_bytes: int, written) -> None:
+    for f in KERNEL_OBSERVERS:
+        f(read_bytes, written)
 
 
 class _ScanCounter(threading.local):

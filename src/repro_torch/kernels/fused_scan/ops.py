@@ -5,14 +5,15 @@ NVRTC on first use.
 
 For a CUDA tensor the wrapper launches the kernel or raises; for a CPU
 tensor it runs the plain torch version (``ref.fused_scan_torch``). There
-is no fallback from one to the other.
+is no fallback from one to the other. A fake or meta tensor on the card
+(``kernels.shape_only``) gets its outputs' shapes and no launch.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .. import _build, record_launch, record_scan
+from .. import _build, note_kernel, record_launch, record_scan, shape_only
 from ..qap_count.ops import check_planes, check_program, fused_count
 from ...rdf.triple_tensor import N_PLANES
 from .ref import fused_scan_torch
@@ -63,9 +64,10 @@ def fused_scan(planes: torch.Tensor, program, n_counters: int,
     counts = torch.zeros((n_counters,), dtype=torch.int64, device=dev)
     regs = torch.zeros((len(sketch_specs), 1 << p), dtype=torch.int32,
                        device=dev)
-    if planes.shape[0]:
+    if planes.shape[0] and not shape_only(planes):
         with torch.cuda.device(dev):
             _build.launch_scan(planes, program, n_counters, sketch_specs, p,
                                counts, regs)
         record_launch("fused_scan")
+    note_kernel(planes.numel() * 4, (counts, regs))
     return counts, {name: regs[i] for i, (name, _) in enumerate(sketch_specs)}

@@ -2,7 +2,8 @@
 
 For a CUDA tensor the wrapper launches the kernel or raises; for a CPU
 tensor it runs the plain torch version (``ref.hll_fold_torch``). There is
-no fallback from one to the other.
+no fallback from one to the other. A fake or meta tensor on the card
+(``kernels.shape_only``) gets its output's shape and no launch.
 
 The JAX wrapper's ``bounded_block_n`` has no counterpart: it caps the rows
 of the TPU kernel's dense (rows, 2^p) one-hot so it fits VMEM, and this
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import _build, record_launch, record_scan
+from .. import _build, note_kernel, record_launch, record_scan, shape_only
 from ..fused_scan.ops import check_sketches
 from ..qap_count.ops import check_planes
 from .ref import hll_fold_torch
@@ -35,7 +36,7 @@ def hll_fold(planes: torch.Tensor, cols: tuple[int, ...],
     if planes.device.type == "cpu":
         return hll_fold_torch(planes, cols, p)
     regs = torch.zeros((1 << p,), dtype=torch.int32, device=planes.device)
-    if planes.shape[0]:
+    if planes.shape[0] and not shape_only(planes):
         lib = _build.load("hll_fold")
         with torch.cuda.device(planes.device):
             stream = torch.cuda.current_stream(planes.device).cuda_stream
@@ -44,4 +45,5 @@ def hll_fold(planes: torch.Tensor, cols: tuple[int, ...],
                                regs.data_ptr(), stream)
         _build.check("hll_fold", err)
         record_launch("hll_fold")
+    note_kernel(planes.numel() * 4, (regs,))
     return regs

@@ -4,13 +4,14 @@ sketches (``kernels/scan_codegen.py``), compiled with NVRTC on first use.
 
 For a CUDA tensor the wrapper launches the kernel or raises; for a CPU
 tensor it runs the plain torch version (``ref.counts_ref``). There is no
-fallback from one to the other.
+fallback from one to the other. A fake or meta tensor on the card
+(``kernels.shape_only``) gets its output's shape and no launch.
 """
 from __future__ import annotations
 
 import torch
 
-from .. import _build, record_launch, record_scan
+from .. import _build, note_kernel, record_launch, record_scan, shape_only
 from ...core.expr import OP_AND, OP_EMIT, OP_EQP, OP_NOT, OP_OR
 from ...rdf.triple_tensor import N_PLANES
 from .ref import counts_ref
@@ -29,9 +30,9 @@ def check_planes(planes: torch.Tensor) -> None:
     if planes.dim() != 2 or planes.shape[1] != N_PLANES:
         raise ValueError(f"planes must be (N, {N_PLANES}), got "
                          f"{tuple(planes.shape)}")
-    if planes.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"planes must be on cuda or cpu, got "
-                         f"{planes.device}")
+    if planes.device.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"planes must be on cuda or cpu (or meta, for "
+                         f"shapes), got {planes.device}")
     if planes.device.type == "cuda" and not planes.is_contiguous():
         raise ValueError("planes must be contiguous")
 
@@ -82,10 +83,10 @@ def fused_count(planes: torch.Tensor, program, n_counters: int):
         return counts_ref(planes, program, n_counters)
     counts = torch.zeros((n_counters,), dtype=torch.int64,
                          device=planes.device)
-    if planes.shape[0] == 0 or not program:
-        return counts
-    with torch.cuda.device(planes.device):
-        _build.launch_scan(planes, program, n_counters, (), None, counts,
-                           None)
-    record_launch("qap_count")
+    if planes.shape[0] and program and not shape_only(planes):
+        with torch.cuda.device(planes.device):
+            _build.launch_scan(planes, program, n_counters, (), None, counts,
+                               None)
+        record_launch("qap_count")
+    note_kernel(planes.numel() * 4, (counts,))
     return counts

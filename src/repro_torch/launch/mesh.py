@@ -145,15 +145,15 @@ def make_host_mesh(model: int = 1, *, device="cuda"):
                       mesh_dim_names=("data", "model"))
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False, device="cpu"):
     """The JAX package's production mesh for the dry-run: (16, 16) over
     ``("data", "model")`` (256 ranks), or (2, 16, 16) over ``("pod",
-    "data", "model")`` (512), a ``DeviceMesh`` on torch's ``fake`` process
-    group, in which this process is rank 0 and no collective moves data.
-    It starts the fake group when the process has none, reuses one of the
-    same world size, and raises ``RuntimeError`` when the process is in a
-    real group (or a fake one of another size); ``close_ranks`` destroys
-    it."""
+    "data", "model")`` (512), a ``DeviceMesh`` of ``device``'s type on
+    torch's ``fake`` process group, in which this process is rank 0 and no
+    collective moves data. It starts the fake group when the process has
+    none, reuses one of the same world size, and raises ``RuntimeError``
+    when the process is in a real group (or a fake one of another size);
+    ``close_ranks`` destroys it."""
     from torch.distributed.device_mesh import init_device_mesh
 
     shape = (2, 16, 16) if multi_pod else (16, 16)
@@ -169,7 +169,8 @@ def make_production_mesh(*, multi_pod: bool = False):
         from torch.testing._internal.distributed.fake_pg import FakeStore
         dist.init_process_group("fake", store=FakeStore(), rank=0,
                                 world_size=world)
-    return init_device_mesh("cpu", shape, mesh_dim_names=axes)
+    return init_device_mesh(torch.device(device).type, shape,
+                            mesh_dim_names=axes)
 
 
 def data_axes(mesh) -> tuple[str, ...]:

@@ -93,7 +93,25 @@ def rmsnorm(x, weight, eps: float = 1e-6):
     return (x * (1.0 + weight.float())).to(dt)
 
 
-@functools.lru_cache(maxsize=64)
+# the caches of small tensors the models keep per device (each
+# ``functools.lru_cache``d function adds itself): cleared around a traced
+# step, whose fake tensors must neither be kept nor be found
+DEVICE_CACHES: list = []
+
+
+def device_cache(fn):
+    """``functools.lru_cache(maxsize=64)`` of ``fn``, in ``DEVICE_CACHES``."""
+    cached = functools.lru_cache(maxsize=64)(fn)
+    DEVICE_CACHES.append(cached)
+    return cached
+
+
+def clear_device_caches() -> None:
+    for fn in DEVICE_CACHES:
+        fn.cache_clear()
+
+
+@device_cache
 def _inv_freq(head_dim: int, theta: float, device: torch.device):
     """The inverse frequencies, computed in float64 numpy and used in
     float32 (as the JAX package does with 64-bit mode off), copied to the

@@ -22,6 +22,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..dist.sharding import split_params
 from .common import ParamTree, normal
@@ -73,8 +74,10 @@ def init_din(cfg: DINConfig, rng):
 def embed_items(cfg: DINConfig, params, item_ids, cat_ids):
     """EmbeddingBag-style lookup: row gathers + concat(item, cat) → (..., 2D)."""
     dt = cfg.dtype
-    it = params["item_table"][item_ids.long()].to(dt)
-    ct = params["cat_table"][cat_ids.long()].to(dt)
+    # F.embedding, not an index: a DTensor step places it by hand
+    # (configs/gnn_common.py::dtensor_step)
+    it = F.embedding(item_ids.long(), params["item_table"]).to(dt)
+    ct = F.embedding(cat_ids.long(), params["cat_table"]).to(dt)
     return torch.cat([it, ct], dim=-1)
 
 

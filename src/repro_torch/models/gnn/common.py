@@ -9,6 +9,7 @@ and give the JAX package's arrays from the same generator.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any
@@ -70,15 +71,71 @@ def remat(mode: str, fn):
     recomputing the rest in the backward pass (``"full"``, the JAX code's
     ``jax.checkpoint``)."""
     if mode == "full":
-        return functools.partial(checkpoint, fn, use_reentrant=False)
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=_forward_modes)
     return fn
+
+
+def _forward_modes():
+    """Checkpoint contexts: the recompute runs under the torch-function
+    modes the forward pass ran under (a DTensor step's,
+    ``configs.gnn_common.dtensor_step``), which the backward pass leaves
+    behind."""
+    modes = torch.overrides._get_current_function_mode_stack()
+
+    @contextlib.contextmanager
+    def again():
+        with contextlib.ExitStack() as stack:
+            for m in modes:
+                stack.enter_context(m)
+            yield
+    return contextlib.nullcontext(), again()
 
 
 def gather_src(h, src):
     return h[src]
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _scatter_over_mesh(msgs, dst, n_nodes, fill, reduce: str):
+    """A scatter of ``DTensor`` messages into a whole ``(n_nodes, ...)``
+    result filled with ``fill``, replicated. A sum is partitioned as XLA
+    partitions a scatter whose updates are sharded by row: every rank
+    scatters its own rows, and an all-reduce completes it. A max gathers
+    the messages first, so that its gradient reaches the rows that hold
+    the maximum over the whole mesh. (DTensor's own strategies for
+    ``index_add`` and ``scatter_reduce`` either have no rule or, in place,
+    relabel a replicated result as sharded without moving its data;
+    torch 2.13.)"""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = msgs.device_mesh
+    rows = [p if p == Shard(0) and reduce == "sum" else Replicate()
+            for p in msgs.placements]
+    msgs = msgs.redistribute(mesh, rows)
+    if not _is_dtensor(dst):
+        dst = DTensor.from_local(dst, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    dst = dst.redistribute(mesh, rows)
+    m, i = msgs.to_local(), dst.to_local().long()
+    out = m.new_full((n_nodes,) + tuple(m.shape[1:]), fill)
+    if reduce == "sum":
+        out = out.index_add(0, i, m)
+    else:
+        i = i.reshape((-1,) + (1,) * (m.ndim - 1)).expand_as(m)
+        out = out.scatter_reduce(0, i, m, "amax", include_self=False)
+    part = [Partial(reduce) if p.is_shard() else Replicate() for p in rows]
+    return DTensor.from_local(out, mesh, part, run_check=False).redistribute(
+        mesh, [Replicate()] * mesh.ndim)
+
+
 def scatter_sum(msgs, dst, n_nodes):
+    if _is_dtensor(msgs):
+        return _scatter_over_mesh(msgs, dst, n_nodes, 0, "sum")
     out = msgs.new_zeros((n_nodes,) + tuple(msgs.shape[1:]))
     return out.index_add_(0, dst.long(), msgs)
 
@@ -94,9 +151,19 @@ def scatter_max(msgs, dst, n_nodes):
     (-inf, or the dtype's least integer), as ``jax.ops.segment_max``."""
     low = (-torch.inf if msgs.dtype.is_floating_point
            else torch.iinfo(msgs.dtype).min)
+    if _is_dtensor(msgs):
+        return _scatter_over_mesh(msgs, dst, n_nodes, low, "max")
     out = msgs.new_full((n_nodes,) + tuple(msgs.shape[1:]), low)
     idx = dst.long().reshape((-1,) + (1,) * (msgs.ndim - 1)).expand_as(msgs)
     return out.scatter_reduce_(0, idx, msgs, "amax", include_self=False)
+
+
+def label_nll(logits, labels):
+    """``-log_softmax(logits)[i, labels[i]]`` of every row ``i``, as a
+    gather: DTensor places it row by row, where an index beside an
+    ``arange`` of all the rows is placed wrong (torch 2.11)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, 1, labels.long()[:, None])[:, 0]
 
 
 def segment_softmax(scores, dst, n_nodes):
@@ -108,11 +175,37 @@ def segment_softmax(scores, dst, n_nodes):
     return e / torch.clamp(z[dst], min=1e-9)
 
 
+def rows_only(x):
+    """A ``DTensor`` with every placement but ``Shard(0)`` replicated (a
+    plain tensor as it is): DTensor (torch 2.13) places a reshape that
+    folds a sharded inner dimension as a strided shard that no product
+    takes, and reduces a partial sum onto whichever dimension it likes,
+    one that does not divide included, where a later view fails."""
+    if not _is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    want = [p if p == Shard(0) else Replicate() for p in x.placements]
+    return x if list(x.placements) == want else x.redistribute(
+        x.device_mesh, want)
+
+
+def settled(x):
+    """A ``DTensor``'s partial sums reduced (replicated); anything else as
+    it is."""
+    if not _is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_partial() else p for p in x.placements])
+
+
 def mlp(params, x, act=F.relu, final_act=False):
     """params: a sequence of layers, each holding ``w`` and ``b``."""
     n = len(params)
     for i, layer in enumerate(params):
-        x = x @ layer["w"].to(x.dtype) + layer["b"].to(x.dtype)
+        x = settled(x @ layer["w"].to(x.dtype)) + layer["b"].to(x.dtype)
         if i < n - 1 or final_act:
             x = act(x)
     return x

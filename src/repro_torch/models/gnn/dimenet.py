@@ -35,9 +35,9 @@ import torch
 import torch.nn.functional as F
 
 from ...dist.sharding import split_params
-from ..common import ParamTree, normal
-from .common import (GraphBatch, init_mlp, layer_of, mlp, remat,
-                     scatter_sum)
+from ..common import ParamTree, device_cache, normal
+from .common import (GraphBatch, init_mlp, label_nll, layer_of, mlp, remat,
+                     rows_only, scatter_sum)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,7 +117,7 @@ def bessel_roots(n_spherical: int, n_radial: int) -> np.ndarray:
 BASIS_DTYPE = torch.float64
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache
 def _roots_on(n_spherical: int, n_radial: int, device: torch.device,
               dtype=torch.float32):
     """``bessel_roots`` in ``dtype`` on ``device``, copied there once."""
@@ -317,6 +317,7 @@ def forward(cfg: DimeNetConfig, params, batch: GraphBatch,
         # "tb,td,bdf->tf" in the JAX code's contraction order: the (T, b, d)
         # outer product first, then one product over (b, d)
         w = bp["w_bilin"]
+        sp, g = rows_only(sp), rows_only(g)
         t_out = ((sp[:, :, None] * g[:, None, :]).reshape(g.shape[0], -1)
                  @ w.reshape(-1, w.shape[-1]))
         agg = scatter_sum(t_out, t_ji, m.shape[0])  # back to ji edges
@@ -342,8 +343,7 @@ def loss_fn(cfg: DimeNetConfig, params, batch: GraphBatch, triplets):
     if cfg.task == "graph":
         tgt = batch.labels.float().reshape(out.shape[0], -1)
         return torch.mean((out - tgt) ** 2)
-    nll = -torch.log_softmax(out, dim=-1)[
-        torch.arange(out.shape[0], device=out.device), batch.labels]
+    nll = label_nll(out, batch.labels)
     if batch.label_mask is not None:
         return (nll * batch.label_mask).sum() / torch.clamp(
             batch.label_mask.sum(), min=1.0)

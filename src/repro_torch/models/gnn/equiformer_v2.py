@@ -35,8 +35,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ...dist.sharding import split_params
 from ..common import ParamTree, normal
-from .common import (GraphBatch, init_mlp, layer_of, mlp, remat,
-                     scatter_sum, segment_softmax)
+from .common import (GraphBatch, init_mlp, label_nll, layer_of, mlp,
+                     remat, scatter_sum, segment_softmax)
 from .wigner import real_sh, rotation_to_axis, wigner_stack
 
 
@@ -374,8 +374,7 @@ def loss_fn(cfg: EquiformerV2Config, params, batch: GraphBatch):
     if cfg.task == "graph":
         tgt = batch.labels.float().reshape(out.shape[0], -1)
         return torch.mean((out - tgt) ** 2)
-    nll = -torch.log_softmax(out, dim=-1)[
-        torch.arange(out.shape[0], device=out.device), batch.labels]
+    nll = label_nll(out, batch.labels)
     if batch.label_mask is not None:
         return (nll * batch.label_mask).sum() / torch.clamp(
             batch.label_mask.sum(), min=1.0)

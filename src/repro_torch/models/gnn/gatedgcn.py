@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from ...dist.sharding import split_params
 from ..common import ParamTree, normal
-from .common import GraphBatch, layer_of, remat, scatter_sum
+from .common import GraphBatch, label_nll, layer_of, remat, scatter_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,8 +116,7 @@ def forward(cfg: GatedGCNConfig, params, batch: GraphBatch):
 
 def loss_fn(cfg: GatedGCNConfig, params, batch: GraphBatch):
     logits = forward(cfg, params, batch).float()
-    nll = -torch.log_softmax(logits, dim=-1)[
-        torch.arange(logits.shape[0], device=logits.device), batch.labels]
+    nll = label_nll(logits, batch.labels)
     if batch.label_mask is not None and cfg.task == "node":
         m = batch.label_mask
         return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)

@@ -142,8 +142,9 @@ def rotation_to_axis(vec):
     lower = v[..., 2] < 0.0
     u = torch.where(lower[:, None], v @ flip.T, v)   # upper-hemisphere copy
 
-    z = torch.tensor([0.0, 0.0, 1.0], dtype=u.dtype, device=u.device)
-    a = torch.linalg.cross(u, z.expand_as(u))        # axis * sinθ
+    # axis * sinθ = u × ẑ = (u_y, −u_x, 0), in components: DTensor has no
+    # rule for linalg.cross (torch 2.11)
+    a = torch.stack([u[..., 1], -u[..., 0], torch.zeros_like(u[..., 0])], -1)
     c = u[..., 2]
     zeros = torch.zeros_like(c)
     K = torch.stack([

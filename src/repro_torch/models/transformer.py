@@ -84,8 +84,8 @@ from ..dist.collectives import (all_gather, all_reduce, copy_to,
 from ..dist.mesh_view import MeshView
 from ..dist.sharding import split_params
 from ..tree import tree_map
-from .common import (ParamTree, apply_rope, attend, normal, rmsnorm,
-                     rope_freqs, softmax_xent, swiglu)
+from .common import (ParamTree, apply_rope, attend, device_cache, normal,
+                     rmsnorm, rope_freqs, softmax_xent, swiglu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -381,7 +381,7 @@ def init_abstract(cfg: TransformerConfig):
 # Forward
 # =============================================================================
 
-@functools.lru_cache(maxsize=32)
+@device_cache
 def _heads(cfg: TransformerConfig, device: torch.device):
     """kv_map, kv_map_cache and the head mask (in cfg.dtype) on ``device``,
     copied once per config and device (a copy a call would wait for the
@@ -622,7 +622,7 @@ def _kv_fits(cfg: TransformerConfig, n_model: int) -> bool:
                 | ~real[r * hl:(r + 1) * hl]).all() for r in range(n_model))
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache
 def _local_heads(cfg: TransformerConfig, n_model: int, rank: int,
                  kv_tp: bool, device: torch.device):
     """(kv_map or None, head mask or None) of this rank's q heads: q head
@@ -1462,10 +1462,13 @@ def make_train_step(cfg: TransformerConfig, optimizer, *, mesh=None,
                 local = tree_map(lambda t: t.to_local(), {
                     "params": model.tree(lambda p: p), "grads": grads,
                     "m": state["opt"]["m"], "v": state["opt"]["v"]})
+                count = state["opt"]["count"]
+                if hasattr(count, "to_local"):     # replicated DTensor
+                    count = count.to_local()
                 inner = optimizer.update(
                     local["params"], local["grads"],
                     {"m": local["m"], "v": local["v"],
-                     "count": state["opt"]["count"]}, gnorm=gnorm)[1]
+                     "count": count}, gnorm=gnorm)[1]
                 opt = {**state["opt"], "count": inner["count"]}
         model.zero_grad(set_to_none=True)
         new_state = {"params": model, "opt": opt, "step": state["step"] + 1}

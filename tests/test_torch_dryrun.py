@@ -7,7 +7,9 @@ JAX builds every bundle in a process of its own with 512 host devices
 ``repro/launch/dryrun.py`` sets it) and reports each argument's
 ``in_shardings[i].shard_shape``; the port's dry-run runs in a process of
 its own too (``python -m repro_torch.launch.dryrun --no-subprocess``), so
-that no fake process group reaches this one. Arguments are matched by
+that no fake process group reaches this one: every cell built
+(``--no-trace``), and a cheap set of cells traced on fake CPU tensors
+(``--device cpu``), whose records fill every field of XLA's compile. Arguments are matched by
 key path, not by leaf order (JAX sorts dict keys). The port holds a layer
 stack's weights one ``ParamTree`` a layer where JAX stacks them (``blocks``
 (L, ...), gemma's ``blocks_local`` (nb, r, ...)), and an MLP's layers as
@@ -35,6 +37,7 @@ from repro.configs import REGISTRY as J_REGISTRY
 from repro.models import din as JDIN
 
 from repro_torch.configs import REGISTRY, paper_qa
+from repro_torch.launch import dryrun
 from repro_torch.rdf import synth_encoded
 
 ENV = {**os.environ, "PYTHONPATH": "src"}
@@ -91,20 +94,39 @@ def jax_cells() -> dict:
             for r in json.loads(proc.stdout.strip().splitlines()[-1])}
 
 
-@pytest.fixture(scope="module")
-def port_run(tmp_path_factory):
-    """``python -m repro_torch.launch.dryrun --no-subprocess`` over every
-    cell: its output and the cells it wrote."""
-    out = tmp_path_factory.mktemp("dryrun") / "cells.jsonl"
+def run_dryrun(out, *argv) -> tuple[str, dict]:
+    """``python -m repro_torch.launch.dryrun --no-subprocess --out out
+    *argv`` in a process of its own: its output and the cells it wrote."""
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun",
-         "--no-subprocess", "--out", os.fspath(out)],
+         "--no-subprocess", "--out", os.fspath(out), *argv],
         env=ENV, capture_output=True, text=True, check=False)
     assert proc.returncode == 0, proc.stderr[-3000:]
     with open(out) as f:
         cells = [json.loads(line) for line in f]
     return proc.stdout, {(r["arch"], r["shape"], r["mesh"]): r
                          for r in cells}
+
+
+@pytest.fixture(scope="module")
+def port_run(tmp_path_factory):
+    """Every cell built, none traced (``--no-trace``)."""
+    return run_dryrun(tmp_path_factory.mktemp("dryrun") / "cells.jsonl",
+                      "--no-trace")
+
+
+# the cells traced here (on fake CPU tensors), on both meshes: the paper's,
+# DIN's, GatedGCN's whole small graph, an LM decode step and gemma's
+# decode of one sequence (a batch the data shards do not divide)
+TRACED = ("dist-quality-assessment:*", "din:*", "gatedgcn:full_graph_sm",
+          "granite-moe-1b-a400m:decode_32k", "gemma3-12b:long_500k")
+
+
+@pytest.fixture(scope="module")
+def traced_run(tmp_path_factory):
+    """The ``TRACED`` cells traced, ``--device cpu``."""
+    return run_dryrun(tmp_path_factory.mktemp("traced") / "cells.jsonl",
+                      "--device", "cpu", "--select", *TRACED)
 
 
 def components(path: str) -> list:
@@ -159,8 +181,67 @@ def test_dryrun_writes_every_cell_and_the_jax_skips(port_run):
             assert key[1] == "long_500k" and r["reason"] == j["reason"]
         else:
             assert r["description"] == j["description"], key
-            assert r["memory"]["temp_bytes"] is None
-            assert r["collectives"] is None and r["absent"]
+            assert r["absent"] == dryrun.UNTRACED, key
+
+
+def test_traced_cells_fill_what_xla_compile_gives(port_run, traced_run):
+    """Every traced cell is ``OK`` with every field of the JAX record's
+    compile filled (memory, FLOPs, bytes accessed, collectives by op) and
+    ``absent`` narrowed to XLA's fusion and scheduling; its arguments
+    those of the untraced run (the JAX bundles', held below); its total a
+    rank the JAX formula over them."""
+    stdout, cells = traced_run
+    _, built = port_run
+    assert "22 cells to go" in stdout and len(cells) == 22
+    for key, r in cells.items():
+        assert r["status"] == "OK", (key, r.get("error"))
+        assert r["absent"] == dryrun.ABSENT and "fusion" in r["absent"]
+        assert r["arguments"] == built[key]["arguments"], key
+        mem = r["memory"]
+        assert mem["argument_bytes"] == built[key]["memory"][
+            "argument_bytes"], key
+        assert all(isinstance(mem[k], int) for k in (
+            "output_bytes", "temp_bytes", "alias_bytes",
+            "total_per_device")), (key, mem)
+        assert mem["total_per_device"] == (
+            mem["argument_bytes"] + mem["output_bytes"] + mem["temp_bytes"]
+            - mem["alias_bytes"]), key
+        assert mem["output_bytes"] > 0 and mem["temp_bytes"] >= 0, key
+        assert r["flops_per_device"] >= 0 and r["bytes_accessed_per_device"] > 0
+        coll = r["collectives"]
+        assert set(coll) == {"bytes_by_op", "counts", "total_bytes"}, key
+        assert set(coll["counts"]) <= {"all-reduce", "all-gather",
+                                       "reduce-scatter", "all-to-all",
+                                       "collective-permute"}, key
+        assert coll["total_bytes"] == sum(coll["bytes_by_op"].values()) > 0
+        assert r["trace_s"] >= 0
+    # the train steps hold their donated state as aliases; a decode step
+    # its cache, at the cache's last slot
+    assert cells[("din", "train_batch", "single")]["memory"][
+        "alias_bytes"] > 0
+    decode = cells[("granite-moe-1b-a400m", "decode_32k", "single")]
+    assert decode["trace_values"] == {"[3]": 32767}
+    assert decode["memory"]["alias_bytes"] > 0
+    one = cells[("gemma3-12b", "long_500k", "single")]
+    assert one["trace_values"] == {"[3]": 524287}
+    # the paper's scan: the reduce over the mesh, counters and registers
+    paper = cells[("dist-quality-assessment", "bsbm_200gb", "multi")]
+    assert paper["collectives"]["counts"] == {"all-reduce": 6}
+    assert paper["flops_per_device"] == 0
+
+
+def test_cuda_trace_needs_a_card_built_torch():
+    """Without a card the default ``--device cuda`` is refused with a
+    message (a fake CUDA tensor in a CPU-only torch would end the
+    process), and nothing falls back to the CPU."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--cell", "din",
+         "serve_p99", "single"], env=ENV, capture_output=True, text=True,
+        check=False)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    assert proc.returncode != 0 and not proc.stdout
+    assert "--device cpu" in proc.stderr
 
 
 @pytest.mark.parametrize("mesh", MESHES)
@@ -224,15 +305,15 @@ def test_launcher_one_cell_and_resume(tmp_path):
     ``--out`` finds nothing left to do."""
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--cell", "din",
-         "train_batch", "single"], env=ENV, capture_output=True, text=True,
-        check=True)
+         "train_batch", "single", "--device", "cpu"], env=ENV,
+        capture_output=True, text=True, check=True)
     lines = proc.stdout.strip().splitlines()
     assert len(lines) == 1
     rec = json.loads(lines[0])
     assert (rec["status"], rec["mesh_shape"]) == ("OK", [16, 16])
     out = os.fspath(tmp_path / "c.jsonl")
     argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-            "din", "--shape", "train_batch", "--out", out]
+            "din", "--shape", "train_batch", "--out", out, "--device", "cpu"]
     first = subprocess.run(argv, env=ENV, capture_output=True, text=True,
                            check=True).stdout
     assert "2 cells to go (0 already done)" in first

@@ -4,7 +4,8 @@ families; the paper's is run in ``tests/test_torch_dryrun.py``).
 The dry-run builds every cell at its production size and calls no
 ``fn``. Here each family's bundle is built from the registry's own code
 at a small size on a (data 2, model 2) ``make_host_mesh`` of four gloo
-ranks (``launch_ranks``): the LM shapes of ``lm_common.LM_SHAPES`` cut
+ranks (``launch_ranks``), each family (LM, DIN, GNN, GraphCast) in a
+launch of its own: the LM shapes of ``lm_common.LM_SHAPES`` cut
 to a few rows and tokens at qwen2.5-14b's SMOKE config, DIN's at its
 SMOKE config, two GNN shapes cut to a few graphs (GatedGCN on
 full_graph_sm's, DimeNet and EquiformerV2 on molecule's, each at the
@@ -26,10 +27,18 @@ once on real tensors and is held to the step it wraps:
   test holds the port's cache to that layout, and the decode bundle's
   ``fn`` to the cache its ``prefill`` makes. The prompt is 2,050 tokens
   long, so that the sequence shards.
-* the DIN and GNN steps run on one device (the JAX bundles' layout is
-  what the dry-run records): the bundle's ``args`` must have the keys
-  and shapes of the family's own batch, and its ``fn`` must give the
-  model's own loss (train) or scores (serve) on it, exactly.
+* the DIN, GNN and GraphCast whole-grid steps are DTensor programs: the
+  bundle's ``args`` must have the keys and shapes of the family's own
+  batch, its ``fn`` on whole tensors must give the model's own loss
+  (train) or scores (serve) on them, exactly, and its ``fn`` on each
+  rank's shards placed as ``run_shardings`` say (the JAX layout with the
+  axes that split rows merged into one) must equal that one-device step
+  within 1e-5 relative: the loss and the first moments after the AdamW
+  update, all leaves as one vector (train), the scores (serve).
+  EquiformerV2's exact check runs at its BASE config (bf16), its mesh
+  check at BASE in float32 (in bf16 two orders of the same sums differ
+  by bf16's 2^-8); GraphCast runs at its SMOKE config on full_graph_sm's
+  cut shape.
 """
 import os
 import pickle
@@ -45,22 +54,27 @@ DEADLINE = 300.0
 RTOL = 1e-5
 PROMPT = 2050                 # > 2,048: the cache's sequence shards
 
-RANK = textwrap.dedent("""
+# each family runs in a rank launch of its own (``family_out``), so that
+# one family's fault cannot hide another's checks: the common head, the
+# family's part, then rank 0 writes ``out``
+HEAD = textwrap.dedent("""
     import dataclasses, pickle, sys
     import numpy as np
     import torch
     from torch.distributed.tensor import Shard, distribute_tensor
     from repro_torch.configs import (dimenet_cfg, din_cfg, equiformer_v2_cfg,
-                                     gatedgcn_cfg, gnn_common, lm_common,
-                                     qwen2_5_14b)
+                                     gatedgcn_cfg, gnn_common, graphcast_cfg,
+                                     lm_common, qwen2_5_14b)
     from repro_torch.dist.collectives import full_tensor
     from repro_torch.launch.mesh import close_ranks, make_host_mesh
+    from repro_torch.launch.trace import map_args
     from repro_torch.models import din as D
     from repro_torch.models import transformer as tf
     from repro_torch.models.common import ParamTree
     from repro_torch.models.gnn import dimenet as DN
     from repro_torch.models.gnn import equiformer_v2 as EQ
     from repro_torch.models.gnn import gatedgcn as GG
+    from repro_torch.models.gnn import graphcast as GC
     from repro_torch.models.gnn.common import (GraphBatch,
                                                block_diagonal_batch,
                                                random_graph)
@@ -98,11 +112,51 @@ RANK = textwrap.dedent("""
     def shapes(tree):
         return [(tuple(x.shape), x.dtype) for x in tree_leaves(tree)]
 
+    def full(x):
+        # a DTensor whole (DTensor's own, partial sums too)
+        return x.full_tensor() if hasattr(x, "full_tensor") else x
+
     def rel(got, want):
-        got, want = full_tensor(got).float(), want.float()
+        got, want = full(got).float(), want.float()
         return float((got - want).abs().max()
                      / (want.abs().max() + 1e-30))
 
+
+    # -- DIN, the GNNs and GraphCast: DTensor programs against one device ---
+    def on_mesh(tree, shardings):
+        return map_args(lambda t, s: place(t, s), tree, shardings)
+
+    def steps_agree(b, state, batch):
+        # the bundle's fn on this rank's shards placed as the port runs
+        # them, against the same fn on the whole tensors: loss and first
+        # moments (train) or scores (serve), relative to their magnitude
+        if isinstance(state, dict):            # train: the state is updated
+            one = b.fn(clone_state(state), batch)
+            got = b.fn(on_mesh(clone_state(state), b.run_shardings[0]),
+                       on_mesh(batch, b.run_shardings[1]))
+            # the moments as one vector: a leaf whose gradient is zero
+            # (7e-12 of EquiformerV2's) holds only noise of its own size
+            m_got = torch.cat([full(x).reshape(-1).float() for x in
+                               tree_leaves(got[0]["opt"]["m"])])
+            m_one = torch.cat([x.reshape(-1).float() for x in
+                               tree_leaves(one[0]["opt"]["m"])])
+            return max(rel(got[1]["loss"], one[1]["loss"]),
+                       rel(m_got, m_one))
+        one = b.fn(state, batch)
+        got = b.fn(on_mesh(state, b.run_shardings[0]),
+                   on_mesh(batch, b.run_shardings[1]))
+        return rel(got, one)
+
+    def clone_state(state):
+        p = state["params"]
+        return {"params": ParamTree(p.tree(lambda x: x.detach().clone()),
+                                    requires_grad=True),
+                "opt": map2(lambda t, _: t.clone(), state["opt"],
+                            state["opt"]),
+                "step": state["step"].clone()}
+""")
+
+LM = textwrap.dedent("""
     # -- LM: qwen2.5-14b's SMOKE at the cut shapes ---------------------------
     lm_common.LM_SHAPES.update(spec["lm_shapes"])
     cfg = qwen2_5_14b.SMOKE
@@ -168,8 +222,9 @@ RANK = textwrap.dedent("""
         _, c1 = tf.prefill(cfg, served1, toks["prompt"], s_max)
         lm["decode_rel"] = rel(lg, tf.decode_step(cfg, served1, c1,
                                                   toks["next"], pos)[0])
+""")
 
-    # -- DIN: SMOKE at the cut shapes (one device) ----------------------------
+DIN = textwrap.dedent("""
     din_cfg.DIN_SHAPES.update(spec["din_shapes"])
     din_cfg.FULL = din_cfg.SMOKE
     dcfg = din_cfg.SMOKE
@@ -192,13 +247,18 @@ RANK = textwrap.dedent("""
             with torch.no_grad():
                 want = float(D.loss_fn(dcfg, params, batch))
             state = gnn_common.gnn_train_state(params)
-            r["equal"] = float(b.fn(state, batch)[1]["loss"]) == want
+            r["equal"] = float(b.fn(clone_state(state),
+                                    batch)[1]["loss"]) == want
+            r["mesh_rel"] = steps_agree(b, state, batch)
         else:
             with torch.no_grad():
                 r["equal"] = bool(torch.equal(b.fn(params, batch),
                                               D.forward(dcfg, params, batch)))
+                r["mesh_rel"] = steps_agree(b, params, batch)
+""")
 
-    # -- GNN: the train steps at cut shapes (one device) ----------------------
+GNN = textwrap.dedent("""
+    # -- GNN: the train steps at cut shapes -----------------------------------
     gnn_common.GNN_SHAPES.update(spec["gnn_shapes"])
     out["gnn"] = {}
     rng = np.random.default_rng(2)
@@ -247,13 +307,56 @@ RANK = textwrap.dedent("""
                                                   for t in tri)))
         state = gnn_common.gnn_train_state(ParamTree(params.tree(),
                                                      requires_grad=True))
-        r["equal"] = float(b.fn(state, batch)[1]["loss"]) == want
+        r["equal"] = float(b.fn(clone_state(state),
+                                batch)[1]["loss"]) == want
+        if arch == "equiformer":
+            # BASE is bf16, where two orders of the same sums differ by
+            # 2^-8: the partitioning is held to 1e-5 by the same bundle and
+            # weights in float32
+            cfg_for = mod._cfg_for
+            mod._cfg_for = lambda sh: dataclasses.replace(
+                cfg_for(sh), dtype=torch.float32)
+            try:
+                b = mod._bundle(shape, mesh)
+            finally:
+                mod._cfg_for = cfg_for
+            params, _ = init(dataclasses.replace(gcfg, dtype=torch.float32),
+                             torch.Generator().manual_seed(3))
+            state = gnn_common.gnn_train_state(
+                ParamTree(params.tree(), requires_grad=True))
+        r["mesh_rel"] = steps_agree(b, state, batch)
+""")
 
+GRAPHCAST = textwrap.dedent("""
+    # -- GraphCast's whole grid at SMOKE ---------------------------------------
+    graphcast_cfg.BASE = graphcast_cfg.SMOKE
+    gnn_common.GNN_SHAPES.update(spec["gnn_shapes"])
+    rng = np.random.default_rng(6)
+    b = graphcast_cfg._bundle("full_graph_sm", mesh)
+    sds = b.args[1]
+    n_grid, n_mesh = sds["grid_feat"].shape[0], sds["mesh_pos"].shape[0]
+    ends = {"g2m_src": n_grid, "g2m_dst": n_mesh, "mesh_src": n_mesh,
+            "mesh_dst": n_mesh, "m2g_src": n_mesh, "m2g_dst": n_grid}
+    batch = {k: (torch.from_numpy(rng.integers(0, ends[k], t.shape)
+                                  .astype(np.int32)) if k in ends
+                 else torch.from_numpy(rng.normal(size=t.shape)
+                                       .astype(np.float32)))
+             for k, t in sds.items()}
+    params, _ = GC.init_graphcast(graphcast_cfg.SMOKE,
+                                  torch.Generator().manual_seed(4))
+    state = gnn_common.gnn_train_state(ParamTree(params.tree(),
+                                                 requires_grad=True))
+    out["graphcast"] = {"mesh_rel": steps_agree(b, state, batch)}
+""")
+
+TAIL = textwrap.dedent("""
     if torch.distributed.get_rank() == 0:
         with open(d + "/out.pkl", "wb") as f:
             pickle.dump(out, f)
     close_ranks()
 """)
+
+FAMILIES = {"lm": LM, "din": DIN, "gnn": GNN, "graphcast": GRAPHCAST}
 
 
 def spec() -> dict:
@@ -280,17 +383,26 @@ def spec() -> dict:
 
 
 @pytest.fixture(scope="module")
-def ranks_out():
-    with tempfile.TemporaryDirectory() as d:
-        with open(os.path.join(d, "in.pkl"), "wb") as f:
-            pickle.dump(spec(), f)
-        launch_ranks(4, ["-c", RANK, d], timeout=DEADLINE)
-        with open(os.path.join(d, "out.pkl"), "rb") as f:
-            return pickle.load(f)
+def family_out():
+    """``family_out(name)``: rank 0's ``out`` of family ``name``'s own rank
+    launch (run once)."""
+    done = {}
+
+    def run(name):
+        if name not in done:
+            with tempfile.TemporaryDirectory() as d:
+                with open(os.path.join(d, "in.pkl"), "wb") as f:
+                    pickle.dump(spec(), f)
+                launch_ranks(4, ["-c", HEAD + FAMILIES[name] + TAIL, d],
+                             timeout=DEADLINE)
+                with open(os.path.join(d, "out.pkl"), "rb") as f:
+                    done[name] = pickle.load(f)
+        return done[name]
+    return run
 
 
-def test_lm_bundle_fns_on_a_mesh(ranks_out):
-    lm = ranks_out["lm"]
+def test_lm_bundle_fns_on_a_mesh(family_out):
+    lm = family_out("lm")["lm"]
     for k in ("train_args_match", "train_opt_layout", "train_state_layout",
               "prefill_layout", "decode_cache_in_layout", "decode_layout"):
         assert lm[k], (k, lm)
@@ -299,11 +411,18 @@ def test_lm_bundle_fns_on_a_mesh(ranks_out):
         assert lm[k] <= RTOL, (k, lm)
 
 
-def test_din_bundle_fns(ranks_out):
-    for shape, r in ranks_out["din"].items():
-        assert r == {"args_match": True, "equal": True}, (shape, r)
+def test_din_bundle_fns(family_out):
+    for shape, r in family_out("din")["din"].items():
+        assert r["args_match"] and r["equal"], (shape, r)
+        assert r["mesh_rel"] <= RTOL, (shape, r)
 
 
-def test_gnn_bundle_fns(ranks_out):
-    for arch, r in ranks_out["gnn"].items():
-        assert r == {"args_match": True, "equal": True}, (arch, r)
+def test_gnn_bundle_fns(family_out):
+    for arch, r in family_out("gnn")["gnn"].items():
+        assert r["args_match"] and r["equal"], (arch, r)
+        assert r["mesh_rel"] <= RTOL, (arch, r)
+
+
+def test_graphcast_whole_grid_bundle_fn(family_out):
+    gc = family_out("graphcast")["graphcast"]
+    assert gc["mesh_rel"] <= RTOL, gc
