@@ -50,6 +50,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..kernels import count_scans, record_scan
 from ..rdf.triple_tensor import TripleTensor, N_PLANES
 from . import sketches as hll
@@ -279,11 +280,13 @@ class QualityEvaluator:
         or ``StagedPlanes`` still being copied) WITHOUT blocking (CUDA
         launches are asynchronous) — the device-side half of
         ``eval_chunk``. Pair with ``materialize_chunk``."""
-        if isinstance(arr, StagedPlanes):
-            arr = arr.consume()
-        if arr.device.type == "cuda" and not self._scans_compiled:
-            self._compile_scans()
-        return [fn(arr) for fn in self._pass_fns]
+        with tracing.span("evaluator.dispatch"):
+            if isinstance(arr, StagedPlanes):
+                arr = arr.consume()
+            if arr.device.type == "cuda" and not self._scans_compiled:
+                with tracing.span("evaluator.compile"):
+                    self._compile_scans()
+            return [fn(arr) for fn in self._pass_fns]
 
     def _compile_scans(self) -> None:
         """Compile every plan's scan kernel at once, in parallel, before
@@ -305,11 +308,12 @@ class QualityEvaluator:
         passes' outputs are first reduced over the mesh
         (``reduce_over_mesh``), so every rank returns the whole chunk's
         counters and registers."""
-        counts, regs = _joined(outs)
-        if self.mesh is not None:
-            counts, regs = self.reduce_over_mesh(counts, regs)
-        return ([c.cpu().numpy() for c in counts],
-                {k: v.cpu().numpy() for k, v in regs.items()})
+        with tracing.span("evaluator.materialize"):
+            counts, regs = _joined(outs)
+            if self.mesh is not None:
+                counts, regs = self.reduce_over_mesh(counts, regs)
+            return ([c.cpu().numpy() for c in counts],
+                    {k: v.cpu().numpy() for k, v in regs.items()})
 
     def reduce_over_mesh(self, counts: list, regs: dict):
         """Counters SUM (int64) and register banks MAX (int32) over the
@@ -391,34 +395,39 @@ class QualityEvaluator:
     @staticmethod
     def merge_chunk(state: dict, chunk_id: int, counts, regs) -> dict:
         """Idempotent merge — re-delivered chunks are ignored."""
-        if chunk_id in state["chunks_done"]:
+        with tracing.span("evaluator.merge"):
+            if chunk_id in state["chunks_done"]:
+                return state
+            state["counts"] = [a + b for a, b in zip(state["counts"],
+                                                     counts)]
+            for k, v in regs.items():
+                state["sketches"][k] = np.maximum(state["sketches"][k], v)
+            state["chunks_done"].add(chunk_id)
             return state
-        state["counts"] = [a + b for a, b in zip(state["counts"], counts)]
-        for k, v in regs.items():
-            state["sketches"][k] = np.maximum(state["sketches"][k], v)
-        state["chunks_done"].add(chunk_id)
-        return state
 
     def finalize_state(self, state: dict, n_triples: int) -> AssessmentResult:
-        # estimates from the merged host registers, on the CPU: the same
-        # registers give the same float32 sum whatever device scanned them
-        est = {"sketch:" + k: float(hll.hll_estimate(torch.from_numpy(
-                   np.ascontiguousarray(v))))
-               for k, v in state["sketches"].items()}
-        values: dict[str, float] = {}
-        counts_out: dict[str, dict[str, int]] = {}
-        for pln, counts in zip(self.plans, state["counts"]):
-            values.update(pln.finalize(counts, est))
-            for m in pln.metrics:
-                counts_out[m.name] = {
-                    c: int(counts[pln.slots[m.name][c]])
-                    for c, _ in m.counters}
-        return AssessmentResult(values=values, counts=counts_out,
-                                sketch_estimates=est, n_triples=n_triples,
-                                passes=len(state["chunks_done"])
-                                * self.passes_per_chunk,
-                                registers={k: np.asarray(v) for k, v
-                                           in state["sketches"].items()})
+        with tracing.span("evaluator.finalize"):
+            # estimates from the merged host registers, on the CPU: the
+            # same registers give the same float32 sum whatever device
+            # scanned them
+            est = {"sketch:" + k: float(hll.hll_estimate(torch.from_numpy(
+                       np.ascontiguousarray(v))))
+                   for k, v in state["sketches"].items()}
+            values: dict[str, float] = {}
+            counts_out: dict[str, dict[str, int]] = {}
+            for pln, counts in zip(self.plans, state["counts"]):
+                with tracing.span("plan.finalize"):
+                    values.update(pln.finalize(counts, est))
+                for m in pln.metrics:
+                    counts_out[m.name] = {
+                        c: int(counts[pln.slots[m.name][c]])
+                        for c, _ in m.counters}
+            return AssessmentResult(
+                values=values, counts=counts_out, sketch_estimates=est,
+                n_triples=n_triples,
+                passes=len(state["chunks_done"]) * self.passes_per_chunk,
+                registers={k: np.asarray(v)
+                           for k, v in state["sketches"].items()})
 
 
 def _joined(outs) -> tuple[list, dict]:

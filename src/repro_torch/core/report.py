@@ -23,6 +23,7 @@ import json
 import os
 from typing import Iterable, Mapping, Union
 
+from .. import tracing
 from .evaluator import AssessmentResult
 from .metrics import REGISTRY
 
@@ -129,7 +130,11 @@ def to_ntriples(result: AssessmentResult,
 
 
 def to_json(result: AssessmentResult, **kw) -> str:
-    return json.dumps(to_dqv(result, **kw), indent=2)
+    with tracing.span("report.to_json"):
+        with tracing.span("report.dqv"):
+            dqv = to_dqv(result, **kw)
+        with tracing.span("report.encode"):
+            return json.dumps(dqv, indent=2)
 
 
 # --- quality history ----------------------------------------------------------

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
+
 DEFAULT_P = 12  # 4096 registers, ~1.6% relative error
 
 _M32 = 0xFFFFFFFF
@@ -88,13 +90,15 @@ def hll_merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def hll_estimate(registers: torch.Tensor) -> torch.Tensor:
     """Standard HLL estimator with small-range (linear counting)
     correction, in float32 like the reference estimator."""
-    m = registers.shape[0]
-    if m >= 128:
-        alpha = 0.7213 / (1.0 + 1.079 / m)
-    else:
-        alpha = {16: 0.673, 32: 0.697, 64: 0.709}.get(m, 0.7213)
-    inv = torch.sum(torch.exp2(-registers.to(torch.float32)))
-    raw = alpha * m * m / inv
-    zeros = torch.sum(registers == 0)
-    small = m * torch.log(m / torch.clamp(zeros, min=1).to(torch.float32))
-    return torch.where((raw <= 2.5 * m) & (zeros > 0), small, raw)
+    with tracing.span("sketches.estimate"):
+        m = registers.shape[0]
+        if m >= 128:
+            alpha = 0.7213 / (1.0 + 1.079 / m)
+        else:
+            alpha = {16: 0.673, 32: 0.697, 64: 0.709}.get(m, 0.7213)
+        inv = torch.sum(torch.exp2(-registers.to(torch.float32)))
+        raw = alpha * m * m / inv
+        zeros = torch.sum(registers == 0)
+        small = m * torch.log(m / torch.clamp(zeros, min=1)
+                              .to(torch.float32))
+        return torch.where((raw <= 2.5 * m) & (zeros > 0), small, raw)

@@ -36,6 +36,16 @@ op reading the planes and writing the outputs.
 else, so a run can show that it went through the kernels:
 ``reset_launches()`` before, read after. The count is taken under a lock:
 the scheduler launches kernels from worker threads too.
+
+Spans
+-----
+With recording on (``repro_torch.tracing``) a wrapper's launch path is
+timed in steps: ``kernel.check`` (the arguments), ``kernel.outputs`` (the
+zeroed outputs), and for the scan kernel ``kernel.source`` (the printed
+plan, cached), ``kernel.get`` (the compiled kernel: the process's cache,
+else the cubin on disk, else NVRTC), ``kernel.module`` (its first load on
+a card) and ``kernel.launch`` (up to the return of ``cuLaunchKernel``,
+carrying the bytes the launch reads).
 """
 from __future__ import annotations
 

@@ -18,6 +18,13 @@ so an edited kernel is rebuilt and a stale one is never loaded:
 
 Nothing here runs at import time: this module is imported on machines
 without a card or a compiler, where only the plain torch versions run.
+
+The scan kernel's path records the spans ``kernel.source``,
+``kernel.get``, ``kernel.module`` and ``kernel.launch``
+(``repro_torch.tracing``). Its misses (a plan printed, a cubin read or
+compiled with NVRTC, a module loaded onto a card) are
+``scan_codegen.BUILD_BUSY`` blocks: the counter of that name holds the
+wall time in which at least one of them ran, in any thread.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ import threading
 import time
 from typing import Optional
 
+from .. import tracing
 from . import scan_codegen
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
@@ -299,71 +307,78 @@ class SpecKernel:
             got = self._fns.get(index)
             if got is not None:
                 return got
-            cu, ctx = _cuda(), _context(index)
-            _cu_check(cu, cu.cuCtxSetCurrent(ctx), "cuCtxSetCurrent")
-            mod, fn = ctypes.c_void_p(), ctypes.c_void_p()
-            _cu_check(cu, cu.cuModuleLoadData(ctypes.byref(mod), self.cubin),
-                      "cuModuleLoadData")
-            _cu_check(cu, cu.cuModuleGetFunction(ctypes.byref(fn), mod,
-                                                 SPEC_ENTRY),
-                      "cuModuleGetFunction")
-            smem = self.src.smem_bytes
-            _cu_check(cu, cu.cuFuncSetAttribute(fn, _FUNC_MAX_DYNAMIC_SHARED,
-                                                smem), "cuFuncSetAttribute")
-            _cu_check(cu, cu.cuFuncSetAttribute(fn, _FUNC_CARVEOUT, 100),
-                      "cuFuncSetAttribute")
-            per_sm, sms, dev = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-            _cu_check(cu, cu.cuOccupancyMaxActiveBlocksPerMultiprocessor(
-                ctypes.byref(per_sm), fn, scan_codegen.THREADS, smem),
-                "cuOccupancyMaxActiveBlocksPerMultiprocessor")
-            _cu_check(cu, cu.cuDeviceGet(ctypes.byref(dev), index),
-                      "cuDeviceGet")
-            _cu_check(cu, cu.cuDeviceGetAttribute(ctypes.byref(sms),
-                                                  _DEV_SM_COUNT, dev),
-                      "cuDeviceGetAttribute")
-            attrs = {}
-            for name, attr in (("registers", _FUNC_REGS),
-                               ("local_bytes", _FUNC_LOCAL),
-                               ("static_shared_bytes", _FUNC_STATIC_SHARED)):
-                v = ctypes.c_int()
-                _cu_check(cu, cu.cuFuncGetAttribute(ctypes.byref(v), attr, fn),
-                          "cuFuncGetAttribute")
-                attrs[name] = v.value
-            if per_sm.value < 1:
-                raise RuntimeError(f"the scan kernel does not fit an SM: "
-                                   f"{smem} B of shared memory")
-            self.resources[index] = dict(
-                attrs, dynamic_shared_bytes=smem,
-                threads=scan_codegen.THREADS,
-                tile_rows=scan_codegen.TILE_ROWS, stages=scan_codegen.STAGES,
-                blocks_per_sm=per_sm.value, sms=sms.value)
-            got = self._fns[index] = (ctx, fn, mod, sms.value * per_sm.value)
+            with tracing.span("kernel.module"), \
+                    tracing.busy(scan_codegen.BUILD_BUSY):
+                got = self._fns[index] = self._load(index)
             return got
+
+    def _load(self, index: int) -> tuple:
+        """Load the cubin onto card ``index`` (under ``_spec_lock``)."""
+        cu, ctx = _cuda(), _context(index)
+        _cu_check(cu, cu.cuCtxSetCurrent(ctx), "cuCtxSetCurrent")
+        mod, fn = ctypes.c_void_p(), ctypes.c_void_p()
+        _cu_check(cu, cu.cuModuleLoadData(ctypes.byref(mod), self.cubin),
+                  "cuModuleLoadData")
+        _cu_check(cu, cu.cuModuleGetFunction(ctypes.byref(fn), mod,
+                                             SPEC_ENTRY),
+                  "cuModuleGetFunction")
+        smem = self.src.smem_bytes
+        _cu_check(cu, cu.cuFuncSetAttribute(fn, _FUNC_MAX_DYNAMIC_SHARED,
+                                            smem), "cuFuncSetAttribute")
+        _cu_check(cu, cu.cuFuncSetAttribute(fn, _FUNC_CARVEOUT, 100),
+                  "cuFuncSetAttribute")
+        per_sm, sms, dev = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        _cu_check(cu, cu.cuOccupancyMaxActiveBlocksPerMultiprocessor(
+            ctypes.byref(per_sm), fn, scan_codegen.THREADS, smem),
+            "cuOccupancyMaxActiveBlocksPerMultiprocessor")
+        _cu_check(cu, cu.cuDeviceGet(ctypes.byref(dev), index),
+                  "cuDeviceGet")
+        _cu_check(cu, cu.cuDeviceGetAttribute(ctypes.byref(sms),
+                                              _DEV_SM_COUNT, dev),
+                  "cuDeviceGetAttribute")
+        attrs = {}
+        for name, attr in (("registers", _FUNC_REGS),
+                           ("local_bytes", _FUNC_LOCAL),
+                           ("static_shared_bytes", _FUNC_STATIC_SHARED)):
+            v = ctypes.c_int()
+            _cu_check(cu, cu.cuFuncGetAttribute(ctypes.byref(v), attr, fn),
+                      "cuFuncGetAttribute")
+            attrs[name] = v.value
+        if per_sm.value < 1:
+            raise RuntimeError(f"the scan kernel does not fit an SM: "
+                               f"{smem} B of shared memory")
+        self.resources[index] = dict(
+            attrs, dynamic_shared_bytes=smem,
+            threads=scan_codegen.THREADS,
+            tile_rows=scan_codegen.TILE_ROWS, stages=scan_codegen.STAGES,
+            blocks_per_sm=per_sm.value, sms=sms.value)
+        return ctx, fn, mod, sms.value * per_sm.value
 
     def launch(self, planes, counts, regs) -> None:
         """Launch on ``planes``' card and torch's current stream there:
         ``counts`` and ``regs`` are the zeroed outputs (``regs`` None
         without sketches)."""
         import torch
-        index = planes.device.index
-        if index is None:
-            index = torch.cuda.current_device()
-        ctx, fn, _, cap = self._function(index)
         n = planes.shape[0]
-        grid = max(1, min(-(-n // scan_codegen.TILE_ROWS), cap))
-        stream = torch.cuda.current_stream(planes.device).cuda_stream
-        args = (ctypes.c_void_p(planes.data_ptr()), ctypes.c_longlong(n),
-                ctypes.c_void_p(counts.data_ptr()),
-                ctypes.c_void_p(0 if regs is None else regs.data_ptr()))
-        params = (ctypes.c_void_p * len(args))(
-            *(ctypes.addressof(a) for a in args))
-        cu = _cuda()
-        _cu_check(cu, cu.cuCtxSetCurrent(ctx), "cuCtxSetCurrent")
-        _cu_check(cu, cu.cuLaunchKernel(
-            fn, grid, 1, 1, scan_codegen.THREADS, 1, 1,
-            self.src.smem_bytes, stream, ctypes.cast(params, ctypes.c_void_p),
-            None),
-            "scan kernel launch")
+        with tracing.span("kernel.launch", n * self.src.row_bytes):
+            index = planes.device.index
+            if index is None:
+                index = torch.cuda.current_device()
+            ctx, fn, _, cap = self._function(index)
+            grid = max(1, min(-(-n // scan_codegen.TILE_ROWS), cap))
+            stream = torch.cuda.current_stream(planes.device).cuda_stream
+            args = (ctypes.c_void_p(planes.data_ptr()), ctypes.c_longlong(n),
+                    ctypes.c_void_p(counts.data_ptr()),
+                    ctypes.c_void_p(0 if regs is None else regs.data_ptr()))
+            params = (ctypes.c_void_p * len(args))(
+                *(ctypes.addressof(a) for a in args))
+            cu = _cuda()
+            _cu_check(cu, cu.cuCtxSetCurrent(ctx), "cuCtxSetCurrent")
+            _cu_check(cu, cu.cuLaunchKernel(
+                fn, grid, 1, 1, scan_codegen.THREADS, 1, 1,
+                self.src.smem_bytes, stream,
+                ctypes.cast(params, ctypes.c_void_p), None),
+                "scan kernel launch")
 
 
 def _load_or_compile(src) -> "SpecKernel":
@@ -394,40 +409,43 @@ def spec_kernel(src) -> SpecKernel:
     else NVRTC. The lock guards only the caches: a compile runs outside it,
     so other plans compile and launch meanwhile, and a thread that asks for
     a plan being compiled waits for that compile."""
-    with _spec_lock:
-        kern = _specs.get(src.digest)
-        if kern is not None:
-            spec_stats["hits"] += 1
-            return kern
-        fut = _pending.get(src.digest)
-        owner = fut is None
-        if owner:
-            fut = _pending[src.digest] = concurrent.futures.Future()
-        else:
-            spec_stats["hits"] += 1
-    if not owner:
-        return fut.result()
-    try:
-        kern = _load_or_compile(src)
-    except BaseException as e:
+    with tracing.span("kernel.get"):
         with _spec_lock:
+            kern = _specs.get(src.digest)
+            if kern is not None:
+                spec_stats["hits"] += 1
+                return kern
+            fut = _pending.get(src.digest)
+            owner = fut is None
+            if owner:
+                fut = _pending[src.digest] = concurrent.futures.Future()
+            else:
+                spec_stats["hits"] += 1
+        if not owner:
+            return fut.result()
+        try:
+            with tracing.busy(scan_codegen.BUILD_BUSY):
+                kern = _load_or_compile(src)
+        except BaseException as e:
+            with _spec_lock:
+                del _pending[src.digest]
+            fut.set_exception(e)
+            raise
+        with _spec_lock:
+            spec_stats[kern.how] += 1
+            _specs[src.digest] = kern
             del _pending[src.digest]
-        fut.set_exception(e)
-        raise
-    with _spec_lock:
-        spec_stats[kern.how] += 1
-        _specs[src.digest] = kern
-        del _pending[src.digest]
-    fut.set_result(kern)
-    return kern
+        fut.set_result(kern)
+        return kern
 
 
 def scan_source(program, n_counters: int, sketch_specs, p):
     """The generated source (cached) of one plan's scan kernel."""
-    return scan_codegen.generate_cached(
-        tuple(map(tuple, program)), n_counters,
-        tuple((name, tuple(cols)) for name, cols in sketch_specs),
-        p if sketch_specs else None)
+    with tracing.span("kernel.source"):
+        return scan_codegen.generate_cached(
+            tuple(map(tuple, program)), n_counters,
+            tuple((name, tuple(cols)) for name, cols in sketch_specs),
+            p if sketch_specs else None)
 
 
 def compile_scans(srcs) -> list[SpecKernel]:

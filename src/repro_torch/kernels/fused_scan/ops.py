@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ... import tracing
 from .. import _build, note_kernel, record_launch, record_scan, shape_only
 from ..qap_count.ops import check_planes, check_program, fused_count
 from ...rdf.triple_tensor import N_PLANES
@@ -55,15 +56,17 @@ def fused_scan(planes: torch.Tensor, program, n_counters: int,
     if not sketch_specs:        # pure-counter plan: the qap_count kernel IS
         return fused_count(planes, program, n_counters), {}  # the one pass
     record_scan(1)
-    check_planes(planes)
-    check_program(program, n_counters)
-    check_sketches(sketch_specs, p)
+    with tracing.span("kernel.check"):
+        check_planes(planes)
+        check_program(program, n_counters)
+        check_sketches(sketch_specs, p)
     if planes.device.type == "cpu":
         return fused_scan_torch(planes, program, n_counters, sketch_specs, p)
     dev = planes.device
-    counts = torch.zeros((n_counters,), dtype=torch.int64, device=dev)
-    regs = torch.zeros((len(sketch_specs), 1 << p), dtype=torch.int32,
-                       device=dev)
+    with tracing.span("kernel.outputs"):
+        counts = torch.zeros((n_counters,), dtype=torch.int64, device=dev)
+        regs = torch.zeros((len(sketch_specs), 1 << p), dtype=torch.int32,
+                           device=dev)
     if planes.shape[0] and not shape_only(planes):
         with torch.cuda.device(dev):
             _build.launch_scan(planes, program, n_counters, sketch_specs, p,

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ... import tracing
 from .. import _build, note_kernel, record_launch, record_scan, shape_only
 from ..fused_scan.ops import check_sketches
 from ..qap_count.ops import check_planes
@@ -29,13 +30,18 @@ def hll_fold(planes: torch.Tensor, cols: tuple[int, ...],
     0), as the JAX wrapper derives it, so zero rows are invisible.
     """
     record_scan(1)
-    check_planes(planes)
     cols = tuple(cols)
-    # the columns, validated, out of check_sketches' row (n_cols, cols...)
-    host_cols = check_sketches((("hll_fold", cols),), p)[0, 1:1 + len(cols)]
+    with tracing.span("kernel.check"):
+        check_planes(planes)
+        # the columns, validated, out of check_sketches' row (n_cols,
+        # cols...)
+        host_cols = check_sketches((("hll_fold", cols),),
+                                   p)[0, 1:1 + len(cols)]
     if planes.device.type == "cpu":
         return hll_fold_torch(planes, cols, p)
-    regs = torch.zeros((1 << p,), dtype=torch.int32, device=planes.device)
+    with tracing.span("kernel.outputs"):
+        regs = torch.zeros((1 << p,), dtype=torch.int32,
+                           device=planes.device)
     if planes.shape[0] and not shape_only(planes):
         lib = _build.load("hll_fold")
         with torch.cuda.device(planes.device):

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ... import tracing
 from .. import _build, note_kernel, record_launch, record_scan, shape_only
 from ...core.expr import OP_AND, OP_EMIT, OP_EQP, OP_NOT, OP_OR
 from ...rdf.triple_tensor import N_PLANES
@@ -77,12 +78,14 @@ def fused_count(planes: torch.Tensor, program, n_counters: int):
     int64 counts. Zero rows (padding) carry no VALID bit and count in no
     counter; the kernel masks the ragged tail itself."""
     record_scan(1)
-    check_planes(planes)
-    check_program(program, n_counters)
+    with tracing.span("kernel.check"):
+        check_planes(planes)
+        check_program(program, n_counters)
     if planes.device.type == "cpu":
         return counts_ref(planes, program, n_counters)
-    counts = torch.zeros((n_counters,), dtype=torch.int64,
-                         device=planes.device)
+    with tracing.span("kernel.outputs"):
+        counts = torch.zeros((n_counters,), dtype=torch.int64,
+                             device=planes.device)
     if planes.shape[0] and program and not shape_only(planes):
         with torch.cuda.device(planes.device):
             _build.launch_scan(planes, program, n_counters, (), None, counts,

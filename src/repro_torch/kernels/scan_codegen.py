@@ -33,6 +33,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from .. import tracing
+
 # opcodes, as core/expr.py numbers them (no import: this module stays
 # free of torch)
 OP_HASBITS, OP_ANYBITS, OP_LT, OP_LE, OP_GT, OP_GE, OP_EQ, OP_NE = range(8)
@@ -43,6 +45,9 @@ VALID_PLANE = 3                # COL_S_FLAGS
 VALID_BIT = 1 << 3             # vocab.VALID
 N_PLANES = 13
 ROW_BYTES = 4 * N_PLANES
+# the tracing counter of the wall time spent getting kernels: printing a
+# plan here, reading or compiling its cubin and loading it (``_build``)
+BUILD_BUSY = "kernel.build_ns"
 # the HLL hash of scan_common.cuh, for the numpy oracle only: the generated
 # code calls scan_common.cuh's HASH_SEED, hash_step and fmix32
 HASH_SALT = 0x9E3779B9
@@ -199,6 +204,7 @@ class KernelSource:
     p: int                      # 0 when the plan has no sketches
     shared_banks: bool
     smem_bytes: int             # dynamic shared memory a block
+    row_bytes: int              # bytes of a row the kernel stages and reads
 
     @property
     def n_sketches(self) -> int:
@@ -307,12 +313,14 @@ def generate(program: Sequence[Sequence[int]], n_counters: int,
     return KernelSource(source=source,
                         digest=hashlib.sha256(source.encode()).hexdigest(),
                         dag=dag, p=p,
-                        shared_banks=shared_banks, smem_bytes=smem)
+                        shared_banks=shared_banks, smem_bytes=smem,
+                        row_bytes=ROW_BYTES)
 
 
 @functools.lru_cache(maxsize=256)
 def generate_cached(program: tuple, n_counters: int, sketch_specs: tuple,
                     p: Optional[int]) -> KernelSource:
     """``generate``, cached by plan (the wrappers call it on every
-    launch)."""
-    return generate(program, n_counters, sketch_specs, p)
+    launch). A miss is a ``BUILD_BUSY`` block (``repro_torch.tracing``)."""
+    with tracing.busy(BUILD_BUSY):
+        return generate(program, n_counters, sketch_specs, p)
