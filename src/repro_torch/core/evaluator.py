@@ -407,11 +407,9 @@ class QualityEvaluator:
 
     def finalize_state(self, state: dict, n_triples: int) -> AssessmentResult:
         with tracing.span("evaluator.finalize"):
-            # estimates from the merged host registers, on the CPU: the
-            # same registers give the same float32 sum whatever device
-            # scanned them
-            est = {"sketch:" + k: float(hll.hll_estimate(torch.from_numpy(
-                       np.ascontiguousarray(v))))
+            # estimates from the merged host registers: the same registers
+            # give the same float32 value whatever device scanned them
+            est = {"sketch:" + k: hll.estimate_bank(v)
                    for k, v in state["sketches"].items()}
             values: dict[str, float] = {}
             counts_out: dict[str, dict[str, int]] = {}

@@ -14,6 +14,11 @@ products are split into 16-bit halves so they never overflow int64.
 """
 from __future__ import annotations
 
+import functools
+import math
+import struct
+
+import numpy as np
 import torch
 
 from .. import tracing
@@ -87,18 +92,75 @@ def hll_merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.maximum(a, b)
 
 
-def hll_estimate(registers: torch.Tensor) -> torch.Tensor:
+SUM_ROUNDED = "sketches.sum_rounded"
+
+_F32 = struct.Struct("f")
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to the nearest float32."""
+    return _F32.unpack(_F32.pack(x))[0]
+
+
+def _alpha(m: int) -> float:
+    if m >= 128:
+        return 0.7213 / (1.0 + 1.079 / m)
+    return {16: 0.673, 32: 0.697, 64: 0.709}.get(m, 0.7213)
+
+
+def _raw(inv: float, m: int) -> float:
+    """``alpha·m²/inv`` for a float32 ``inv``, in float32 in torch's order
+    for a Python number over a float32 tensor: the reciprocal, then the
+    product. Each step is taken in float64 and rounded once to float32,
+    which gives float32's own result: a quotient rounded to 53 bits and
+    then to 24 rounds as it would directly (53 >= 2·24 + 2), and a product
+    of two float32 values is exact in float64."""
+    return _f32(_f32(1.0 / inv) * _f32(_alpha(m) * m * m))
+
+
+@functools.cache
+def _linear_count(m: int, zeros: int) -> float:
+    """``m·ln(m/zeros)`` in float32, from torch's ops on 0-dim tensors,
+    computed once for each ``(m, zeros)``: numpy's and libm's ``log``
+    differ from torch's in the last bit for some counts."""
+    z = torch.clamp(torch.tensor(zeros), min=1).to(torch.float32)
+    return float(m * torch.log(m / z))
+
+
+def estimate_bank(registers: np.ndarray) -> float:
     """Standard HLL estimator with small-range (linear counting)
-    correction, in float32 like the reference estimator."""
+    correction, in float32 like the reference estimator, from a numpy bank
+    of ``m = 2^p`` registers.
+
+    Amid a request's other work every numpy or torch call costs tens of
+    microseconds, so one ``np.bincount`` gives the rank histogram and the
+    rest is arithmetic on its at most ``34 - p`` counts.
+
+    ``sum(2^-reg)`` is taken exactly, as the integer
+    ``sum(count·2^(top - rank))`` with ``top = 33 - p`` the largest rank (at
+    most 2^33), and rounded once to float32. Below ``2^(24 - kmax)``,
+    ``kmax`` the largest register, every partial sum of any order is a
+    float32 value, so this is the float32 sum in whatever order it is
+    added; estimates on the raw branch past it are counted in
+    ``SUM_ROUNDED``."""
     with tracing.span("sketches.estimate"):
         m = registers.shape[0]
-        if m >= 128:
-            alpha = 0.7213 / (1.0 + 1.079 / m)
-        else:
-            alpha = {16: 0.673, 32: 0.697, 64: 0.709}.get(m, 0.7213)
-        inv = torch.sum(torch.exp2(-registers.to(torch.float32)))
-        raw = alpha * m * m / inv
-        zeros = torch.sum(registers == 0)
-        small = m * torch.log(m / torch.clamp(zeros, min=1)
-                              .to(torch.float32))
-        return torch.where((raw <= 2.5 * m) & (zeros > 0), small, raw)
+        top = 33 - (m.bit_length() - 1)
+        hist = np.bincount(registers).tolist()
+        units = 0
+        for rank, count in enumerate(hist):
+            units += count << (top - rank)
+        raw = _raw(_f32(math.ldexp(units, -top)), m)
+        zeros = hist[0]
+        if raw <= 2.5 * m and zeros > 0:
+            return _linear_count(m, zeros)
+        if units >= 1 << (24 + top - (len(hist) - 1)):
+            tracing.add(SUM_ROUNDED)
+        return raw
+
+
+def hll_estimate(registers: torch.Tensor) -> torch.Tensor:
+    """``estimate_bank`` of a tensor's registers, as a 0-dim float32
+    tensor on its device."""
+    est = estimate_bank(registers.detach().cpu().numpy())
+    return torch.tensor(est, dtype=torch.float32, device=registers.device)

@@ -27,8 +27,8 @@ may carry one number, ``value`` (a scan launch's bytes read). At most
 Counters are integers, kept always, whether recording is on or not: a
 ``busy(counter)`` block adds the wall time during which at least one
 block of that counter is open in any thread (work that runs in several
-threads at once counts once), and ``spans.dropped`` counts the spans
-past the cap.
+threads at once counts once), ``add(counter, n)`` adds ``n``, and
+``spans.dropped`` counts the spans past the cap.
 
 ``drain()`` returns the spans and counters kept so far and clears them
 (``drain(clear=False)`` keeps them). Every call is safe from any thread.
@@ -187,6 +187,12 @@ class _Busy:
                 _counters[self.name] = (_counters.get(self.name, 0)
                                         + _clock() - b[1])
         return False
+
+
+def add(counter: str, n: int = 1) -> None:
+    """Adds ``n`` to ``counter``."""
+    with _lock:
+        _counters[counter] = _counters.get(counter, 0) + n
 
 
 def busy(counter: str) -> _Busy:

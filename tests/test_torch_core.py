@@ -3,10 +3,13 @@ against the JAX package's (``repro.core``).
 
 Inputs are numpy arrays made from a seed and handed to both packages.
 Tolerances: exact for programs, slots, masks, counters, hashes, buckets,
-ranks and registers (all integer). ``hll_estimate`` sums ``exp2(-regs)`` in
-float32 in both packages, but XLA and torch add in different orders, so the
-estimates may differ in the last float32 bits: ``rel=1e-6``.
+ranks and registers (all integer). The JAX package sums ``exp2(-regs)`` in
+float32 in XLA's order and the port rounds the exact sum once to float32, so
+the estimates may differ in the last float32 bits: ``rel=1e-6``. The port's
+estimator is also held bit for bit to its earlier torch form (``_torch_*``).
 """
+from fractions import Fraction
+
 import numpy as np
 import pytest
 import torch
@@ -195,3 +198,100 @@ def test_hll_estimate_matches_jax(p, card):
     want = float(JS.hll_estimate(jnp.asarray(regs)))
     assert got == pytest.approx(want, rel=1e-6)
     assert TS.hll_estimate(torch.from_numpy(regs)).dtype == torch.float32
+
+
+# -- the estimator against its earlier torch form -----------------------------
+
+def _torch_alpha_m2(m):
+    return (0.7213 / (1.0 + 1.079 / m) if m >= 128
+            else {16: 0.673, 32: 0.697, 64: 0.709}.get(m, 0.7213)) * m * m
+
+
+def _torch_estimate(registers):
+    """The port's estimator as a dozen torch ops, as it was before the
+    exact sum: the oracle of the tests below."""
+    m = registers.shape[0]
+    inv = torch.sum(torch.exp2(-registers.to(torch.float32)))
+    raw = _torch_alpha_m2(m) / inv
+    zeros = torch.sum(registers == 0)
+    small = m * torch.log(m / torch.clamp(zeros, min=1).to(torch.float32))
+    return torch.where((raw <= 2.5 * m) & (zeros > 0), small, raw)
+
+
+def _exact_sum(regs):
+    """``sum(2^-reg)`` as a fraction, and the largest register."""
+    ranks, counts = np.unique(regs, return_counts=True)
+    return (sum(Fraction(int(c), 2 ** int(k)) for k, c in zip(ranks, counts)),
+            int(ranks[-1]))
+
+
+@pytest.mark.parametrize("m", [16, 64, 256, 4096])
+def test_linear_counting_is_the_torch_value_for_every_zero_count(m):
+    """Banks of ``z`` zeros, the rest 1 or 2, take the linear-counting
+    branch for every ``z`` in 1..m and give torch's float32 value."""
+    rest = 1 + np.arange(m, dtype=np.int32) % 2
+    for z in range(1, m + 1):
+        regs = np.where(np.arange(m) < z, 0, rest).astype(np.int32)
+        want = float(_torch_estimate(torch.from_numpy(regs)))
+        small = float(m * torch.log(torch.tensor(m / z, dtype=torch.float32)))
+        assert want == pytest.approx(small, rel=1e-6)   # the branch taken
+        assert TS.estimate_bank(regs) == want, z
+
+
+@pytest.mark.parametrize("m", [16, 4096, 16384])
+def test_raw_tail_is_the_torch_value(m):
+    rng = np.random.default_rng(m)
+    sums = np.float32(m) * np.exp2(rng.uniform(-40, 0, 2000)).astype(
+        np.float32)
+    for inv in sums:
+        want = float(_torch_alpha_m2(m) / torch.tensor(inv))
+        assert TS._raw(float(inv), m) == want, inv
+
+
+@pytest.mark.parametrize("p", [4, 8, 12, 14])
+@pytest.mark.parametrize("card", [10, 1000, 100_000, 2_000_000])
+def test_estimate_is_the_torch_value_when_the_sum_is_exact(p, card):
+    """Below ``2^(24 - kmax)`` every float32 partial sum is exact, so the
+    estimate is torch's bit for bit; past it the sum is rounded once,
+    within ``rel=1e-6`` of torch's."""
+    planes = np.zeros((card, N_PLANES), np.int32)
+    planes[:, COL_S] = np.arange(card, dtype=np.int32) * 7 + p
+    regs = j_href.hll_fold_ref(planes, (COL_S,), p)
+    total, kmax = _exact_sum(regs)
+    want = float(_torch_estimate(torch.from_numpy(regs)))
+    got = TS.estimate_bank(regs)
+    if total < 2 ** (24 - kmax):
+        assert got == want
+    else:
+        assert got == pytest.approx(want, rel=1e-6)
+    est = TS.hll_estimate(torch.from_numpy(regs))
+    assert est.dtype == torch.float32 and est.dim() == 0
+    assert float(est) == got
+
+
+def _rounded_banks():
+    """p = 12 banks on the raw branch whose ``sum(2^-reg)`` needs more
+    than float32's 24 bits: 4,095 registers of 3 and one of 20
+    (511.875 + 2^-20), and a seeded mix of small and large registers whose
+    float32 sums in numpy's and in torch's order (here) both give another
+    estimate than the correctly rounded sum."""
+    regs = np.full(4096, 3, np.int32)
+    regs[7] = 20
+    rng = np.random.default_rng(2)
+    mix = rng.integers(1, 8, 4096).astype(np.int32)
+    mix[rng.integers(0, 4096, 600)] = rng.integers(15, 22, 600)
+    return [regs, mix]
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_estimate_past_the_exact_range_rounds_the_sum_once(which):
+    regs = _rounded_banks()[which]
+    total, kmax = _exact_sum(regs)
+    assert total >= 2 ** (24 - kmax)
+    want = float(_torch_alpha_m2(4096) / torch.tensor(
+        np.float32(float(total))))
+    assert want > 2.5 * 4096                            # the raw branch
+    assert TS.estimate_bank(regs) == want
+    assert TS.estimate_bank(regs) == pytest.approx(
+        float(_torch_estimate(torch.from_numpy(regs))), rel=1e-6)
+

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch import tracing
 from repro_torch.core import report
+from repro_torch.core import sketches
 from repro_torch.core.evaluator import QualityEvaluator, run_single_shot
 from repro_torch.core.metrics import ALL_METRICS, PAPER_METRICS
 from repro_torch.dist import ChunkScheduler
@@ -173,6 +174,42 @@ def test_drain_can_leave_the_record(rec):
     assert _names(kept.spans) == ["x"] and list(kept.counters) == ["n"]
     assert rec.drain() == kept
     assert rec.drain() == ([], {})
+
+
+def test_add_accumulates_and_is_kept(rec):
+    """``add`` counts with recording off, and ``drain(clear=False)``
+    leaves the count to grow on."""
+    rec.add("n")
+    rec.add("n", 4)
+    assert rec.drain(clear=False).counters == {"n": 5}
+    rec.add("n", 2)
+    assert rec.drain().counters == {"n": 7}
+    assert rec.drain() == ([], {})
+
+
+def _bank(p, rows):
+    keys = torch.arange(rows, dtype=torch.int32)[:, None] * 7 + 1
+    return sketches.hll_update(sketches.hll_init(p), keys, (0,)).numpy()
+
+
+def _rounded_bank():
+    """The raw branch with ``sum(2^-reg)`` = 511.875 + 2^-20, which needs
+    more than float32's 24 bits."""
+    regs = np.full(4096, 3, np.int32)
+    regs[7] = 20
+    return regs
+
+
+@pytest.mark.parametrize("banks,raw,rounded", [
+    # a full report's two banks: ``spo`` on the raw branch with an exact
+    # float32 sum, ``p`` (64 keys) on the linear-counting branch
+    (lambda: [_bank(12, 2_000_000), _bank(12, 64)], [True, False], 0),
+    (lambda: [_rounded_bank()], [True], 1),
+], ids=["full_report", "rounded"])
+def test_sum_rounded_counts_the_rounded_raw_sums(rec, banks, raw, rounded):
+    ests = [sketches.estimate_bank(regs) for regs in banks()]
+    assert [e > 2.5 * 4096 for e in ests] == raw
+    assert rec.drain().counters.get(sketches.SUM_ROUNDED, 0) == rounded
 
 
 def _union_ns(spans):
