@@ -212,6 +212,36 @@ def test_sum_rounded_counts_the_rounded_raw_sums(rec, banks, raw, rounded):
     assert rec.drain().counters.get(sketches.SUM_ROUNDED, 0) == rounded
 
 
+def _step_bank(high):
+    """``high`` registers at 16, the rest at 15: the raw estimate crosses
+    2^32/30 between 2,650 and 2,660 of them."""
+    regs = np.full(4096, 15, np.int32)
+    regs[:high] = 16
+    return regs
+
+
+@pytest.mark.parametrize("bank,estimate,past", [
+    # the estimates as estimate_bank gave them before the counter, in hex
+    (lambda: np.full(4096, 15, np.int32), "0x1.7135560000000p+26", 0),
+    (lambda: _step_bank(2650), "0x1.10e0300000000p+27", 0),
+    (lambda: _step_bank(2660), "0x1.115e780000000p+27", 1),
+    (lambda: np.full(4096, 18, np.int32), "0x1.7135560000000p+29", 1),
+    (lambda: np.random.default_rng(7).integers(15, 21, 4096)
+     .astype(np.int32), "0x1.1ff3320000000p+28", 1),
+    (lambda: _bank(12, 64), None, 0),
+], ids=["uniform15", "step2650", "step2660", "uniform18", "mixed",
+        "linear"])
+def test_past_range_counts_estimates_past_the_large_range(rec, bank,
+                                                          estimate, past):
+    """``sketches.past_range`` counts each estimate past 2^32/30, whose
+    value stays the uncorrected raw one."""
+    est = sketches.estimate_bank(bank())
+    if estimate is not None:
+        assert est.hex() == estimate
+    assert (est > 2 ** 32 / 30) == bool(past)
+    assert rec.drain().counters.get(sketches.PAST_RANGE, 0) == past
+
+
 def _union_ns(spans):
     tot, end = 0, None
     for a, b in sorted(spans):
