@@ -20,7 +20,9 @@ from __future__ import annotations
 
 import datetime
 import json
+import math
 import os
+import re
 from typing import Iterable, Mapping, Union
 
 from .. import tracing
@@ -52,9 +54,15 @@ def _dimension_uri(dimension: str) -> str:
 
 def to_dqv(result: AssessmentResult, dataset_uri: str = "urn:repro:dataset",
            computed_on: str | None = None) -> dict:
-    ts = computed_on or _now()
+    return _dqv(result.values, result.n_triples, result.passes,
+                _exec_stats_provenance(result), dataset_uri,
+                computed_on or _now())
+
+
+def _dqv(values: Mapping, n_triples, passes, exec_stats: dict | None,
+         dataset_uri: str, ts) -> dict:
     measurements = []
-    for name, value in sorted(result.values.items()):
+    for name, value in sorted(values.items()):
         # results may outlive their registry entries (user metrics can be
         # unregistered after assessment) — degrade gracefully
         m = REGISTRY.get(name) or _UNKNOWN_METRIC
@@ -72,13 +80,12 @@ def to_dqv(result: AssessmentResult, dataset_uri: str = "urn:repro:dataset",
         "@context": {"dqv": DQV, "prov": PROV, "dcterms": DCT, "xsd": XSD,
                      "sdmx-measure": SDMX},
         "@id": dataset_uri,
-        "nTriples": result.n_triples,
-        "passes": result.passes,
+        "nTriples": n_triples,
+        "passes": passes,
         "measurements": measurements,
     }
-    es = _exec_stats_provenance(result)
-    if es is not None:
-        out["execStats"] = es
+    if exec_stats is not None:
+        out["execStats"] = exec_stats
     return out
 
 
@@ -129,12 +136,98 @@ def to_ntriples(result: AssessmentResult,
     return "\n".join(lines) + "\n"
 
 
-def to_json(result: AssessmentResult, **kw) -> str:
+def to_json(result: AssessmentResult, dataset_uri: str = "urn:repro:dataset",
+            computed_on: str | None = None) -> str:
+    """``json.dumps(to_dqv(result, ...), indent=2)``, byte for byte.
+
+    The indented encoder is pure Python; instead the text is filled into
+    a template of the report's static text, built once a shape (metric
+    names and their registry entries, ``dataset_uri``, ``execStats``'
+    keys) from that same encoder. A value the template cannot hold (NaN,
+    infinities, a bool, anything but a ``str``, ``int`` or ``float``)
+    takes the encoder itself. One of the counters ``report.template_hit``,
+    ``report.template_build`` or ``report.template_fallback`` counts each
+    call."""
     with tracing.span("report.to_json"):
         with tracing.span("report.dqv"):
-            dqv = to_dqv(result, **kw)
+            ts = computed_on or _now()
+            es = _exec_stats_provenance(result)
+            names = sorted(result.values)
+            metrics = [REGISTRY.get(name) or _UNKNOWN_METRIC
+                       for name in names]
+            key = (dataset_uri, None if es is None else tuple(es),
+                   tuple(names), tuple([m.dimension for m in metrics]),
+                   tuple([m.description for m in metrics]))
+            template = _TEMPLATES.get(key)
+            counter = "report.template_hit"
+            if template is None:
+                template = _build_template(key, names, es, dataset_uri)
+                counter = "report.template_build"
+        if template is not None:
+            with tracing.span("report.encode"):
+                text = _fill(template, (
+                    result.n_triples, result.passes,
+                    *(() if es is None else es.values()),
+                    *(result.values[name] for name in names), ts))
+            if text is not None:
+                tracing.add(counter)
+                return text
+        tracing.add("report.template_fallback")
+        with tracing.span("report.dqv"):
+            dqv = to_dqv(result, dataset_uri, computed_on)
         with tracing.span("report.encode"):
             return json.dumps(dqv, indent=2)
+
+
+# to_json's templates: a tuple of the report's static text at even
+# positions and, between them, the index of the leaf that goes there
+# (``nTriples``, ``passes``, execStats' values, the metric values in name
+# order, the timestamp). Nothing in them depends on a value.
+_TEMPLATES: dict = {}
+_TEMPLATES_MAX = 64
+_SLOT = "@repro.slot.{}@"
+_SLOT_SPLIT = re.compile(r'"@repro\.slot\.(\d+)@"')
+
+
+def _build_template(key, names, es, dataset_uri):
+    """The template of ``key``, cached, from ``json.dumps(..., indent=2)``
+    of a report whose leaves are sentinels; None where a sentinel is not
+    found as often as it was put in (the static text holds one)."""
+    n_es = 0 if es is None else len(es)
+    slot = [_SLOT.format(i) for i in range(3 + n_es + len(names))]
+    pieces = _SLOT_SPLIT.split(json.dumps(_dqv(
+        dict(zip(names, slot[2 + n_es:-1])), slot[0], slot[1],
+        None if es is None else dict(zip(es, slot[2:2 + n_es])),
+        dataset_uri, slot[-1]), indent=2))
+    pieces[1::2] = map(int, pieces[1::2])
+    if sorted(pieces[1::2]) != [*range(len(slot) - 1),
+                                *[len(slot) - 1] * len(names)]:
+        return None
+    template = tuple(pieces)
+    if len(_TEMPLATES) >= _TEMPLATES_MAX:
+        _TEMPLATES.clear()
+    _TEMPLATES[key] = template
+    return template
+
+
+def _fill(template: tuple, leaves: tuple) -> str | None:
+    """``template`` with each slot replaced by its leaf as ``json``'s
+    encoder writes it; None if a leaf is one the template cannot hold."""
+    text = []
+    for v in leaves:
+        if isinstance(v, float):
+            if not math.isfinite(v):
+                return None
+            text.append(float.__repr__(v))
+        elif isinstance(v, int) and not isinstance(v, bool):
+            text.append(int.__repr__(v))
+        elif isinstance(v, str):
+            text.append(json.encoder.encode_basestring_ascii(v))
+        else:
+            return None
+    pieces = list(template)
+    pieces[1::2] = [text[i] for i in template[1::2]]
+    return "".join(pieces)
 
 
 # --- quality history ----------------------------------------------------------
