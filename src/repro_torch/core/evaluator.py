@@ -289,17 +289,21 @@ class QualityEvaluator:
             return [fn(arr) for fn in self._pass_fns]
 
     def _compile_scans(self) -> None:
-        """Compile every plan's scan kernel at once, in parallel, before
-        the first launch on a card (per-metric mode has one plan a
-        metric); the launches then find them in the process's cache."""
+        """Compile every plan's scan kernel (and ``twopass``'s
+        ``hll_fold``) at once, in parallel, before the first launch on a
+        card (per-metric mode has one plan a metric); the launches then
+        find them in the process's cache."""
         if self.backend in ("fused_scan", "twopass"):
             from ..kernels import _build
-            _build.compile_scans(
-                _build.scan_source(
-                    pln.program, pln.n_counters,
-                    pln.sketch_specs if self.backend == "fused_scan"
-                    else (), self.hll_p)
-                for pln in self.plans)
+            fused = self.backend == "fused_scan"
+            srcs = [_build.scan_source(pln.program, pln.n_counters,
+                                       pln.sketch_specs if fused else (),
+                                       self.hll_p)
+                    for pln in self.plans]
+            if not fused and any(pln.sketch_specs for pln in self.plans):
+                from ..kernels.hll import ops as hops
+                srcs.append(hops.kernel_source())
+            _build.compile_scans(srcs)
         self._scans_compiled = True
 
     def materialize_chunk(self, outs):

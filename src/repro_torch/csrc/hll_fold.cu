@@ -29,7 +29,8 @@
 // against the register it would raise and the atomic skipped when it
 // would not.
 //
-// C interface (bound with ctypes); returns a cudaError_t, 0 on success.
+// Launched by kernels/hll/ops.py, which checks the arguments and chooses
+// the shared memory, the bank's place and the grid.
 #include "scan_common.cuh"
 
 using namespace scan;
@@ -41,7 +42,7 @@ struct Columns {
   int c[N_PLANES];
 };
 
-__global__ void __launch_bounds__(THREADS)
+extern "C" __global__ void __launch_bounds__(THREADS)
 hll_fold_kernel(const int* __restrict__ planes, long long n_rows,
                 const Columns cols, int p, bool shared_bank,
                 int* __restrict__ regs) {
@@ -69,26 +70,4 @@ hll_fold_kernel(const int* __restrict__ planes, long long n_rows,
     for (int i = threadIdx.x; i < m; i += THREADS)
       if (bank[i]) raise_to(regs + i, bank[i], false);
   }
-}
-
-// cols: host array of n_cols plane indices; regs: zeroed (2^p,) int32.
-extern "C" int hll_fold(const int* planes, long long n_rows, const int* cols,
-                        int n_cols, int p, int* regs, void* stream) {
-  if (n_rows <= 0) return 0;
-  if (n_cols < 1 || n_cols > N_PLANES || p < 4 || p > 20)
-    return (int)cudaErrorInvalidValue;
-  Columns c = {};
-  c.n = n_cols;
-  for (int j = 0; j < n_cols; ++j) c.c[j] = cols[j];
-  const size_t bank_bytes = sizeof(int) << p;
-  const bool shared_bank = bank_bytes <= (size_t)SHARED_BANK_BYTES;
-  const size_t smem = shared_bank ? bank_bytes : 0;
-  const long long n_groups = (n_rows + THREADS - 1) / THREADS;
-  cudaError_t err;
-  const int blocks = grid_blocks((const void*)hll_fold_kernel, THREADS,
-                                 smem, n_groups, &err);
-  if (err != cudaSuccess) return (int)err;
-  hll_fold_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      planes, n_rows, c, p, shared_bank, regs);
-  return (int)cudaGetLastError();
 }

@@ -3,22 +3,14 @@
 // the HyperLogLog hash, rank and register update, defined once so the
 // kernels that fold registers cannot drift apart.
 //
-// Compiled by nvcc (hll_fold.cu) and by NVRTC (the generated sources that
-// include scan_spec.cuh), which has no standard headers: under NVRTC the
-// fixed-width types are declared here and the host helper is left out.
+// Every kernel is compiled by NVRTC (kernels/_build.py), which has no
+// standard headers: the fixed-width types are declared here.
 #pragma once
 
-#ifdef __CUDACC_RTC__
 namespace scan {
+
 typedef unsigned int uint32_t;
 typedef unsigned long long uint64_t;
-}  // namespace scan
-#else
-#include <cstdint>
-#include <cuda_runtime.h>
-#endif
-
-namespace scan {
 
 constexpr int N_PLANES = 13;
 constexpr int VALID_PLANE = 3;      // COL_S_FLAGS
@@ -85,28 +77,5 @@ __device__ __forceinline__ void raise_to(int* reg, int rank, bool shared) {
     if (rank > __ldcg(reg)) atomicMax(reg, rank);
   }
 }
-
-#ifndef __CUDACC_RTC__
-// Grid size: enough blocks of `threads` to fill every SM once, at most one
-// per item of work.
-inline int grid_blocks(const void* kernel, int threads, size_t smem,
-                       long long n_items, cudaError_t* err) {
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((*err = cudaGetDevice(&dev)) != cudaSuccess) return 0;
-  if ((*err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                     dev)) != cudaSuccess)
-    return 0;
-  if ((*err = cudaFuncSetAttribute(
-           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-           (int)smem)) != cudaSuccess)
-    return 0;
-  if ((*err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, threads, smem)) != cudaSuccess)
-    return 0;
-  if (per_sm < 1) per_sm = 1;
-  const long long want = (long long)sms * per_sm;
-  return (int)(n_items < want ? n_items : want);
-}
-#endif
 
 }  // namespace scan

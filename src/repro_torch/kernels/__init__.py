@@ -9,12 +9,11 @@
 
 ``qap_count`` and ``fused_scan`` are one kernel, specialized per plan:
 ``scan_codegen`` prints the plan as straight-line CUDA around the
-hand-written block structure ``csrc/scan_spec.cuh``, and ``_build``
-compiles it with NVRTC on first use. ``hll_fold`` is a fixed source,
-``csrc/hll_fold.cu``, compiled with ``nvcc``. Both are bound through
-``ctypes``. Each wrapper in
-``*/ops.py`` launches its kernel for a CUDA tensor and runs the plain torch
-version in ``*/ref.py`` only for a CPU tensor.
+hand-written block structure ``csrc/scan_spec.cuh``. ``hll_fold`` is a
+fixed source, ``csrc/hll_fold.cu``. ``_build`` compiles both with NVRTC
+on first use and launches them through the CUDA driver API. Each wrapper
+in ``*/ops.py`` launches its kernel for a CUDA tensor and runs the plain
+torch version in ``*/ref.py`` only for a CPU tensor.
 
 Pass accounting
 ---------------
@@ -41,11 +40,12 @@ Spans
 -----
 With recording on (``repro_torch.tracing``) a wrapper's launch path is
 timed in steps: ``kernel.check`` (the arguments), ``kernel.outputs`` (the
-zeroed outputs), and for the scan kernel ``kernel.source`` (the printed
-plan, cached), ``kernel.get`` (the compiled kernel: the process's cache,
-else the cubin on disk, else NVRTC), ``kernel.module`` (its first load on
-a card) and ``kernel.launch`` (up to the return of ``cuLaunchKernel``,
-carrying the bytes the launch reads).
+zeroed outputs), for the scan kernel ``kernel.source`` (the printed
+plan, cached), and for both kernels ``kernel.get`` (the compiled kernel:
+the process's cache, else the cubin on disk, else NVRTC),
+``kernel.module`` (its first load on a card) and ``kernel.launch`` (up to
+the return of ``cuLaunchKernel``, carrying the bytes of the rows the
+launch reads).
 """
 from __future__ import annotations
 

@@ -1,25 +1,23 @@
-"""Build the CUDA kernels in ``repro_torch/csrc`` and bind them with ctypes.
+"""Build the CUDA kernels in ``repro_torch/csrc`` and launch them.
 
-Two kinds of kernel, both compiled for ``sm_90a`` on first use into
-``build/kernels/`` at the root of the checkout (``.gitignore`` lists
-``build/``), under file names that carry a digest of what went into them,
-so an edited kernel is rebuilt and a stale one is never loaded:
-
-* a fixed source, ``csrc/<name>.cu`` (``hll_fold``), with ``nvcc`` into a
-  shared library with a plain C interface. ``build_all`` starts one
-  ``nvcc`` per source, all at once, and waits for them.
-* the plan-specialized scan kernel (``qap_count`` and ``fused_scan``): one
-  source per plan, printed by ``scan_codegen`` around
-  ``csrc/scan_spec.cuh``, compiled in-process with NVRTC (``libnvrtc``
-  of the CUDA toolkit) into a cubin, cached in the process and on disk,
-  loaded with the CUDA driver API into the primary context of the card
-  and launched on torch's current stream (``SpecKernel``). NVRTC runs
-  outside any lock, so plans compile in parallel (``compile_scans``).
+One path for every kernel. Its source is either printed per plan by
+``scan_codegen`` around ``csrc/scan_spec.cuh`` (the scan kernel,
+``qap_count`` and ``fused_scan``) or a fixed file of ``csrc/``
+(``hll_fold.cu``, a ``FixedSource``). It is compiled for ``sm_90a`` on
+first use, in-process with NVRTC (``libnvrtc`` of the CUDA toolkit),
+into a cubin cached in the process and in ``build/kernels/`` at the root
+of the checkout (``.gitignore`` lists ``build/``), under a file name
+that carries a digest of the source, the headers and the flags, so an
+edited kernel is rebuilt and a stale one is never loaded. The cubin is
+loaded with the CUDA driver API into the primary context of the card
+and launched with ``cuLaunchKernel`` on torch's current stream
+(``SpecKernel``). NVRTC runs outside any lock, so sources compile in
+parallel (``compile_scans``).
 
 Nothing here runs at import time: this module is imported on machines
 without a card or a compiler, where only the plain torch versions run.
 
-The scan kernel's path records the spans ``kernel.source``,
+The path records the spans ``kernel.source`` (the scan kernel's),
 ``kernel.get``, ``kernel.module`` and ``kernel.launch``
 (``repro_torch.tracing``). Its misses (a plan printed, a cubin read or
 compiled with NVRTC, a module loaded onto a card) are
@@ -30,121 +28,21 @@ from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import dataclasses
 import hashlib
 import os
 import pathlib
-import subprocess
 import threading
 import time
-from typing import Optional
 
 from .. import tracing
 from . import scan_codegen
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parents[2] / "build" / "kernels"
-SOURCES = ("hll_fold",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
-# ptxas's report (registers, shared memory, spills) of each build
-build_logs: dict[str, str] = {}
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME)")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def _lib_path(name: str) -> pathlib.Path:
-    digest = hashlib.sha256()
-    for f in (CSRC / "scan_common.cuh", CSRC / f"{name}.cu"):
-        digest.update(f.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
-
-
-def _start(name: str) -> Optional[tuple[subprocess.Popen, pathlib.Path,
-                                        pathlib.Path]]:
-    out = _lib_path(name)
-    if out.exists():
-        return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
-
-
-def _finish(name: str, job) -> None:
-    proc, tmp, out = job
-    log, _ = proc.communicate()
-    build_logs[name] = log
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {name}.cu "
-                           f"(exit {proc.returncode}):\n{log}")
-    os.replace(tmp, out)
-
-
-def build_all() -> None:
-    """Compile every source that has no current library, in parallel."""
-    with _lock:
-        jobs = {name: _start(name) for name in SOURCES}
-        errors = []
-        for name, job in jobs.items():
-            if job is None:
-                continue
-            try:
-                _finish(name, job)
-            except RuntimeError as e:
-                errors.append(str(e))
-        if errors:
-            raise RuntimeError("\n".join(errors))
-
-
-def load(name: str) -> ctypes.CDLL:
-    """The ctypes library of ``csrc/<name>.cu``, built if needed."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        job = _start(name)
-        if job is not None:
-            _finish(name, job)
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = _ARGTYPES[name]
-        _libs[name] = lib
-        return lib
-
-
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = {
-    # planes, n_rows, cols (host), n_cols, p, regs, stream
-    "hll_fold": [_P, _LL, _P, _I, _I, _P, _P],
-}
-
-
-def check(name: str, err: int) -> None:
-    """Raise if a launch returned a nonzero ``cudaError_t``."""
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-
-
-# --- the plan-specialized scan kernel: NVRTC at first use --------------------
-
 SPEC_HEADERS = ("scan_common.cuh", "scan_spec.cuh")
 NVRTC_FLAGS = ("--gpu-architecture=sm_90a", "-std=c++17",
                "--ptxas-options=-v")
-SPEC_ENTRY = b"scan_spec"
 # NVRTC compiles, cubins read from the disk cache, kernels found in the
 # process's cache (or being compiled there by another thread)
 spec_stats = {"compiled": 0, "loaded": 0, "hits": 0}
@@ -155,11 +53,24 @@ _pending: dict[str, concurrent.futures.Future] = {}
 _runtime_libs: dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
 _contexts: dict[int, ctypes.c_void_p] = {}
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 # CUDA driver API enums (cuda.h)
-_FUNC_STATIC_SHARED, _FUNC_LOCAL, _FUNC_REGS = 1, 3, 4
+_FUNC_MAX_THREADS, _FUNC_STATIC_SHARED, _FUNC_LOCAL, _FUNC_REGS = 0, 1, 3, 4
 _FUNC_MAX_DYNAMIC_SHARED, _FUNC_CARVEOUT = 8, 9
 _DEV_SM_COUNT = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class FixedSource:
+    """A kernel file of ``csrc/`` as ``spec_kernel`` takes it: one cubin
+    for every call, which passes what varies as the kernel's arguments."""
+    source: str
+    digest: str                 # sha256 of ``source``
+    entry: str                  # the ``extern "C"`` kernel's name
+    threads: int                # a block (its ``__launch_bounds__``)
+    smem_bytes: int             # the most dynamic shared memory a launch takes
+    row_bytes: int              # bytes of a row the kernel reads
 
 
 def _nvrtc() -> ctypes.CDLL:
@@ -251,18 +162,18 @@ def _spec_key(source: str, headers: dict[str, bytes]) -> str:
     return digest.hexdigest()
 
 
-def nvrtc_compile(source: str, headers: dict[str, bytes]
+def nvrtc_compile(source: str, headers: dict[str, bytes], name: str
                   ) -> tuple[bytes, str]:
-    """``source`` compiled with NVRTC for ``sm_90a``: (cubin, log). The
-    headers are handed over in memory; the log holds ptxas' report."""
+    """Kernel ``name``'s ``source`` compiled with NVRTC for ``sm_90a``:
+    (cubin, log). The headers go in memory; the log has ptxas' report."""
     lib = _nvrtc()
     C = ctypes.c_char_p
     prog = ctypes.c_void_p()
     names = (C * len(SPEC_HEADERS))(*(h.encode() for h in SPEC_HEADERS))
     texts = (C * len(SPEC_HEADERS))(*(headers[h] for h in SPEC_HEADERS))
     rc = lib.nvrtcCreateProgram(ctypes.byref(prog), source.encode(),
-                                b"scan_spec.cu", len(SPEC_HEADERS), texts,
-                                names)
+                                f"{name}.cu".encode(), len(SPEC_HEADERS),
+                                texts, names)
     if rc != 0:
         raise RuntimeError(f"nvrtcCreateProgram: "
                            f"{lib.nvrtcGetErrorString(rc).decode()}")
@@ -275,7 +186,7 @@ def nvrtc_compile(source: str, headers: dict[str, bytes]
         lib.nvrtcGetProgramLog(prog, buf)
         log = buf.value.decode(errors="replace")
         if rc != 0:
-            raise RuntimeError(f"NVRTC failed on the scan kernel "
+            raise RuntimeError(f"NVRTC failed on {name} "
                                f"({lib.nvrtcGetErrorString(rc).decode()}):"
                                f"\n{log}\n--- source ---\n{source}")
         if lib.nvrtcGetCUBINSize(prog, ctypes.byref(size)) != 0:
@@ -289,7 +200,7 @@ def nvrtc_compile(source: str, headers: dict[str, bytes]
 
 
 class SpecKernel:
-    """One plan's compiled scan kernel, loaded per card on first launch.
+    """One compiled kernel, loaded per card on first launch.
 
     ``how`` is ``"compiled"`` (NVRTC ran, ``compile_seconds`` long) or
     ``"loaded"`` (the cubin came from the disk cache); ``resources[card]``
@@ -301,6 +212,7 @@ class SpecKernel:
         self.how, self.compile_seconds = how, compile_seconds
         self.resources: dict[int, dict] = {}
         self._fns: dict[int, tuple] = {}
+        self._blocks: dict[tuple[int, int], int] = {}
 
     def _function(self, index: int) -> tuple:
         with _spec_lock:
@@ -320,51 +232,85 @@ class SpecKernel:
         _cu_check(cu, cu.cuModuleLoadData(ctypes.byref(mod), self.cubin),
                   "cuModuleLoadData")
         _cu_check(cu, cu.cuModuleGetFunction(ctypes.byref(fn), mod,
-                                             SPEC_ENTRY),
+                                             self.src.entry.encode()),
                   "cuModuleGetFunction")
         smem = self.src.smem_bytes
         _cu_check(cu, cu.cuFuncSetAttribute(fn, _FUNC_MAX_DYNAMIC_SHARED,
                                             smem), "cuFuncSetAttribute")
         _cu_check(cu, cu.cuFuncSetAttribute(fn, _FUNC_CARVEOUT, 100),
                   "cuFuncSetAttribute")
-        per_sm, sms, dev = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        _cu_check(cu, cu.cuOccupancyMaxActiveBlocksPerMultiprocessor(
-            ctypes.byref(per_sm), fn, scan_codegen.THREADS, smem),
-            "cuOccupancyMaxActiveBlocksPerMultiprocessor")
+        sms, dev = ctypes.c_int(), ctypes.c_int()
         _cu_check(cu, cu.cuDeviceGet(ctypes.byref(dev), index),
                   "cuDeviceGet")
         _cu_check(cu, cu.cuDeviceGetAttribute(ctypes.byref(sms),
                                               _DEV_SM_COUNT, dev),
                   "cuDeviceGetAttribute")
         attrs = {}
-        for name, attr in (("registers", _FUNC_REGS),
+        for name, attr in (("max_threads", _FUNC_MAX_THREADS),
+                           ("registers", _FUNC_REGS),
                            ("local_bytes", _FUNC_LOCAL),
                            ("static_shared_bytes", _FUNC_STATIC_SHARED)):
             v = ctypes.c_int()
             _cu_check(cu, cu.cuFuncGetAttribute(ctypes.byref(v), attr, fn),
                       "cuFuncGetAttribute")
             attrs[name] = v.value
-        if per_sm.value < 1:
-            raise RuntimeError(f"the scan kernel does not fit an SM: "
-                               f"{smem} B of shared memory")
+        per_sm = self._per_sm(cu, fn, smem)
         self.resources[index] = dict(
-            attrs, dynamic_shared_bytes=smem,
-            threads=scan_codegen.THREADS,
-            tile_rows=scan_codegen.TILE_ROWS, stages=scan_codegen.STAGES,
-            blocks_per_sm=per_sm.value, sms=sms.value)
-        return ctx, fn, mod, sms.value * per_sm.value
+            attrs, dynamic_shared_bytes=smem, threads=self.src.threads,
+            blocks_per_sm=per_sm, sms=sms.value)
+        return ctx, fn, mod, sms.value * per_sm
+
+    def _per_sm(self, cu: ctypes.CDLL, fn, smem: int) -> int:
+        per_sm = ctypes.c_int()
+        _cu_check(cu, cu.cuOccupancyMaxActiveBlocksPerMultiprocessor(
+            ctypes.byref(per_sm), fn, self.src.threads, smem),
+            "cuOccupancyMaxActiveBlocksPerMultiprocessor")
+        if per_sm.value < 1:
+            raise RuntimeError(f"{self.src.entry} does not fit an SM: "
+                               f"{smem} B of shared memory")
+        return per_sm.value
+
+    def resident(self, index: int, smem: int) -> int:
+        """The blocks card ``index`` holds at once, each with ``smem``
+        bytes of dynamic shared memory (at most ``src.smem_bytes``),
+        cached per card and size: a launch's most useful grid."""
+        ctx, fn, _, _ = self._function(index)
+        with _spec_lock:
+            blocks = self._blocks.get((index, smem))
+            if blocks is None:
+                cu = _cuda()
+                _cu_check(cu, cu.cuCtxSetCurrent(ctx), "cuCtxSetCurrent")
+                blocks = self._blocks[index, smem] = (
+                    self.resources[index]["sms"] * self._per_sm(cu, fn, smem))
+            return blocks
+
+    def launch_with(self, planes, grid: int, smem: int, args) -> None:
+        """Launch ``grid`` blocks, each with ``smem`` bytes of dynamic
+        shared memory, on ``planes``' card and torch's current stream
+        there; ``args`` are the kernel's arguments as ctypes values. (The
+        scan kernel's ``launch`` is the same inline: the request path.)"""
+        import torch
+        with tracing.span("kernel.launch",
+                          planes.shape[0] * self.src.row_bytes):
+            ctx, fn, _, _ = self._function(planes.device.index)
+            stream = torch.cuda.current_stream(planes.device).cuda_stream
+            params = (ctypes.c_void_p * len(args))(
+                *(ctypes.addressof(a) for a in args))
+            cu = _cuda()
+            _cu_check(cu, cu.cuCtxSetCurrent(ctx), "cuCtxSetCurrent")
+            _cu_check(cu, cu.cuLaunchKernel(
+                fn, grid, 1, 1, self.src.threads, 1, 1, smem, stream,
+                ctypes.cast(params, ctypes.c_void_p), None),
+                f"{self.src.entry} launch")
 
     def launch(self, planes, counts, regs) -> None:
-        """Launch on ``planes``' card and torch's current stream there:
-        ``counts`` and ``regs`` are the zeroed outputs (``regs`` None
-        without sketches)."""
+        """Launch the scan kernel on ``planes``' card and torch's current
+        stream there: ``counts`` and ``regs`` are the zeroed outputs
+        (``regs`` None without sketches)."""
         import torch
         n = planes.shape[0]
         with tracing.span("kernel.launch", n * self.src.row_bytes):
-            index = planes.device.index
-            if index is None:
-                index = torch.cuda.current_device()
-            ctx, fn, _, cap = self._function(index)
+            ctx, fn, _, cap = self._function(planes.device.index)
             grid = max(1, min(-(-n // scan_codegen.TILE_ROWS), cap))
             stream = torch.cuda.current_stream(planes.device).cuda_stream
             args = (ctypes.c_void_p(planes.data_ptr()), ctypes.c_longlong(n),
@@ -386,13 +332,13 @@ def _load_or_compile(src) -> "SpecKernel":
     source, the headers and the flags), else from NVRTC."""
     headers = {h: (CSRC / h).read_bytes() for h in SPEC_HEADERS}
     key = _spec_key(src.source, headers)
-    path = BUILD_DIR / f"scan_spec-{key[:16]}.cubin"
+    path = BUILD_DIR / f"{src.entry}-{key[:16]}.cubin"
     log_path = path.with_suffix(".log")
     if path.exists():
         log = log_path.read_text() if log_path.exists() else ""
         return SpecKernel(src, key, path.read_bytes(), log, "loaded", 0.0)
     t = time.perf_counter()
-    cubin, log = nvrtc_compile(src.source, headers)
+    cubin, log = nvrtc_compile(src.source, headers, src.entry)
     seconds = time.perf_counter() - t
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     for f, data in ((log_path, log.encode()), (path, cubin)):
@@ -404,11 +350,11 @@ def _load_or_compile(src) -> "SpecKernel":
 
 
 def spec_kernel(src) -> SpecKernel:
-    """The compiled kernel of ``src`` (a ``scan_codegen.KernelSource``):
-    from the process's cache (by the source's digest), else the disk cache,
-    else NVRTC. The lock guards only the caches: a compile runs outside it,
-    so other plans compile and launch meanwhile, and a thread that asks for
-    a plan being compiled waits for that compile."""
+    """The compiled kernel of ``src`` (a ``scan_codegen.KernelSource`` or
+    a ``FixedSource``): from the process's cache (by the source's digest),
+    else the disk cache, else NVRTC. The lock guards only the caches: a
+    compile runs outside it, so other sources compile and launch meanwhile,
+    and a thread that asks for one being compiled waits for it."""
     with tracing.span("kernel.get"):
         with _spec_lock:
             kern = _specs.get(src.digest)

@@ -29,7 +29,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import hashlib
-from typing import Optional, Sequence
+from typing import ClassVar, Optional, Sequence
 
 import numpy as np
 
@@ -198,6 +198,8 @@ STAGES = 3
 @dataclasses.dataclass(frozen=True)
 class KernelSource:
     """The generated source and what the launcher needs to know of it."""
+    entry: ClassVar[str] = "scan_spec"      # the kernel's name in the cubin
+    threads: ClassVar[int] = THREADS
     source: str
     digest: str                 # sha256 of ``source``
     dag: Dag

@@ -363,6 +363,35 @@ def test_wrappers_reject_what_the_kernels_cannot_take():
             hops.hll_fold(planes, bad, 12)
 
 
+# the bank's bytes in a block's shared memory (0: raised in place in the
+# global output) at each p: 4 << p while it is no more than 64 KiB
+HLL_SHARED_BYTES = {4: 64, 12: 16384, 14: 65536, 15: 0, 20: 0}
+
+
+@pytest.mark.parametrize("p", sorted(HLL_SHARED_BYTES))
+def test_hll_fold_launch_geometry(p):
+    """hll_fold's launch rule on the CPU: its shared memory and bank
+    placement by p, and a grid of a block per 128 rows, at most the
+    blocks the card holds at that shared memory and at least one. The
+    block is the kernel's own launch bound."""
+    src = hops.kernel_source()
+    assert f"constexpr int THREADS = {hops.THREADS};" in src.source
+    assert (src.entry, src.threads, src.smem_bytes) == (
+        "hll_fold_kernel", 128, 64 * 1024)
+    asked = []
+
+    def resident(smem):
+        asked.append(smem)
+        return 132 * 7
+    want_smem = HLL_SHARED_BYTES[p]
+    for n, grid in ((1, 1), (127, 1), (128, 1), (129, 2),
+                    (132 * 7 * 128, 132 * 7), (132 * 7 * 128 + 1, 132 * 7),
+                    (81_980_472, 132 * 7)):
+        assert hops.launch_geometry(n, p, resident) == (
+            want_smem, want_smem > 0, grid), n
+    assert set(asked) == {want_smem}
+
+
 def test_spec_cache_compiles_each_plan_once_in_parallel(monkeypatch):
     """The kernel cache without a card (the compile replaced by a stub
     that waits until three compiles run at once): three plans compile in
@@ -562,6 +591,33 @@ def test_gpu_hll_fold_unaligned_planes(cuda):
     for cols in SKETCH_COLS:
         assert torch.equal(hops.hll_fold(planes, cols, 12),
                            href.hll_fold_torch(planes, cols, 12)), cols
+
+
+@pytest.mark.gpu
+def test_gpu_hll_fold_through_the_spec_cache(cuda, tmp_path, monkeypatch):
+    """hll_fold is built on the scan kernel's path: its first launch in a
+    process compiles one cubin (or loads it from the disk cache), later
+    launches find it in the process's cache, and the CUDA driver reports the
+    kernel's launch bound, the 128 threads a launch gives a block."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_specs", {})
+    planes = torch.from_numpy(_planes(20_000, seed=7)).to(cuda)
+    cols = SKETCH_COLS[0]
+    want = href.hll_fold_torch(planes, cols, 12)
+    before = dict(_build.spec_stats)
+    for p in (12, 12, 16):
+        assert torch.equal(hops.hll_fold(planes, cols, p),
+                           href.hll_fold_torch(planes, cols, p)), p
+    delta = {k: _build.spec_stats[k] - before[k] for k in before}
+    assert delta == {"compiled": 1, "loaded": 0, "hits": 2}
+    assert len(list(tmp_path.glob("hll_fold_kernel-*.cubin"))) == 1
+    kern = _build._specs[hops.kernel_source().digest]
+    assert kern.how == "compiled"
+    res = kern.resources[cuda.index or 0]
+    assert res["threads"] == res["max_threads"] == 128
+    monkeypatch.setattr(_build, "_specs", {})
+    assert torch.equal(hops.hll_fold(planes, cols, 12), want)
+    assert _build.spec_stats["loaded"] - before["loaded"] == 1
 
 
 # --- the plan-specialized scan kernel on the card ------------------------------

@@ -216,12 +216,18 @@ def test_no_interpreter_left():
         for k, _ in src.dag.emits:
             assert f"cnt[{k}] +=" in text
         assert '#include "scan_spec.cuh"' in text
+    # and every kernel source is device code alone, for NVRTC: no host
+    # launch, runtime API or C entry point, no second compiler to serve
     for f in CSRC.iterdir():
         text = f.read_text()
-        for word in ("run_program", "eval_leaf", "valid_bits", "OP_EMIT"):
+        for word in ("run_program", "eval_leaf", "valid_bits", "OP_EMIT",
+                     "<<<", "cudaError_t", "cuda_runtime.h",
+                     'extern "C" int', "__CUDACC_RTC__"):
             assert word not in text, (f.name, word)
     assert sorted(f.name for f in CSRC.iterdir()) == [
         "hll_fold.cu", "scan_common.cuh", "scan_spec.cuh"]
+    assert 'extern "C" __global__ void __launch_bounds__(THREADS)\n' \
+        "hll_fold_kernel(" in (CSRC / "hll_fold.cu").read_text()
 
 
 @pytest.mark.parametrize("n_sketches, p, shared", [
